@@ -53,7 +53,8 @@ def _sweep(d, passable):
 
 
 def chamfer_plain(crops, local, sweeps, init=None):
-    """Plain version of the chamfer kernel (``geodesic_cuda.chamfer``).
+    """Chamfer sweeps over crops, the plain core of K1's plain version
+    (``geodesic_cuda.chamfer_windows_plain``).
 
     crops: bool/uint8 [N, W, W] passable flags, source cells already forced
       passable; local: int [N, 2] source (y, x) in each crop (a source
@@ -129,9 +130,10 @@ def _batched_windows(passable_padded, srcs_yx, window, max_sweeps):
 
 
 def batched_windows(passable_padded, srcs_yx, window, max_sweeps=8,
-                    converge=False):
+                    converge=False, bits=None):
     """Distance maps for N sources. CUDA tensors go through the chamfer
     kernel (``geodesic_cuda``), CPU tensors through the plain version.
+    ``bits`` is the caller's ``geodesic_cuda.pack_mask(passable_padded)``.
 
     converge=True guarantees exactness on any mask geometry: the maps are
     certified with the local-consistency check and the sweep budget doubles
@@ -140,10 +142,10 @@ def batched_windows(passable_padded, srcs_yx, window, max_sweeps=8,
     from . import geodesic_cuda as GC
     if converge:
         return GC.batched_windows_converged(passable_padded, srcs_yx, window,
-                                            max_sweeps=max_sweeps)
+                                            max_sweeps=max_sweeps, bits=bits)
     if passable_padded.is_cuda:
         dmaps, origins, _ = GC.batched_windows_probed(
-            passable_padded, srcs_yx, window, max_sweeps)
+            passable_padded, srcs_yx, window, max_sweeps, bits=bits)
         return dmaps, origins
     return _batched_windows(passable_padded, srcs_yx, window, max_sweeps)
 

@@ -169,9 +169,11 @@ def test_cpu_tensors_never_reach_the_kernel():
     GC.batched_windows_probed(torch.from_numpy(mask), torch.from_numpy(srcs),
                               64, 2)
     assert GC.chamfer_kernel.launches == before
+    bits, row_words = GC.pack_mask(torch.from_numpy(mask))
     with pytest.raises(ValueError):
-        GC.chamfer_kernel(torch.zeros(1, 8, 8, dtype=torch.uint8),
-                          torch.zeros(1, 2, dtype=torch.int32), 1)
+        GC.chamfer_kernel(bits, row_words,
+                          torch.zeros(1, 2, dtype=torch.int32),
+                          torch.zeros(1, 2, dtype=torch.int32), 64, 1)
 
 
 def test_source_outside_window_seeds_nothing():
@@ -188,3 +190,188 @@ def test_source_outside_window_seeds_nothing():
                                64, 2)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (got[:3] == G.INF).all() and got[3].min() == 0
+
+
+# ---- K1's plain version on the bit-packed mask (the kernel's contract)
+
+def _windows(mask, srcs, window):
+    """(bits, row_words, N, origins, local) of the port's probe route."""
+    m = torch.from_numpy(mask)
+    N, Np, origins, local = GC._pad_srcs(m, torch.from_numpy(srcs), window)
+    return (*GC.pack_mask(m), N, origins, local)
+
+
+@pytest.mark.parametrize('sweeps', [1, 2])
+@pytest.mark.parametrize('family', sorted(MASKS))
+def test_windows_plain_equals_pallas_probed(family, sweeps):
+    """chamfer_windows_plain on the packed mask: the Pallas route's maps
+    bit for bit (interpret mode), fresh and continued, and its per-window
+    flags' conjunction over the real windows is the Pallas certificate."""
+    from axtrack_tpu.ops import geodesic_pallas as GP
+    make, window = MASKS[family]
+    mask, srcs = make()
+    bits, row_words, N, origins, local = _windows(mask, srcs, window)
+    d_j, _, ok_j = GP.batched_windows_probed(jnp.asarray(mask), srcs, window,
+                                             max_sweeps=sweeps,
+                                             interpret=True)
+    maps, ok = GC.chamfer_windows_plain(bits, row_words, origins, local,
+                                        window, sweeps)
+    assert maps.dtype == torch.float32 and ok.dtype == torch.int32
+    np.testing.assert_array_equal(maps[:N].numpy(), np.asarray(d_j))
+    assert bool(ok[:N].all()) == bool(ok_j)
+
+    c_j, cok_j = GP._continue_windows_pallas(jnp.asarray(mask), srcs, d_j,
+                                             window, sweeps, interpret=True)
+    cont, cok = GC.chamfer_windows_plain(bits, row_words, origins, local,
+                                         window, sweeps, init=maps)
+    np.testing.assert_array_equal(cont[:N].numpy(), np.asarray(c_j))
+    assert bool(cok[:N].all()) == bool(cok_j)
+
+
+@pytest.mark.parametrize('sweeps', [1, 2, 8])
+@pytest.mark.parametrize('family', ['random_blob', 'serpentine'])
+def test_window_flags_equal_single_window_certificate(family, sweeps):
+    """Each window's flag is the certificate of that window alone. On the
+    maze (serpentine) every window fails at 1 and 2 sweeps; on the blob at
+    1 sweep some windows fail and others pass."""
+    make, window = MASKS[family]
+    mask, srcs = make()
+    bits, row_words, N, origins, local = _windows(mask, srcs, window)
+    maps, ok = GC.chamfer_windows_plain(bits, row_words, origins, local,
+                                        window, sweeps)
+    crops = G.crops_for(torch.from_numpy(mask), origins, local, window)
+    want = [bool(GC._locally_consistent(maps[n:n + 1], crops[n:n + 1]))
+            for n in range(len(maps))]
+    assert ok.tolist() == [int(w) for w in want]
+    if family == 'serpentine' and sweeps < 8:
+        assert not any(want[:N])
+    if family == 'random_blob' and sweeps == 1:
+        assert 0 < sum(want[:N]) < N
+
+
+@pytest.mark.parametrize('width', [1, 31, 32, 33, 63, 100, 130])
+def test_pack_mask_round_trip(width):
+    rng = np.random.default_rng(width)
+    mask = rng.random((5, width)) > 0.5
+    mask[0] = True
+    bits, row_words = GC.pack_mask(torch.from_numpy(mask))
+    assert bits.dtype == torch.int32 and row_words == -(-width // 32) + 1
+    assert tuple(bits.shape) == (5, row_words)
+    back = GC.unpack_mask(bits, row_words).numpy()
+    np.testing.assert_array_equal(back[:, :width], mask)
+    assert not back[:, width:].any()
+
+
+@pytest.mark.parametrize('per_thread', [1, 2, 4, 8, 16, 32])
+def test_funnel_read_every_offset(per_thread):
+    """The kernel's read of a thread's columns [c, c + E): the two words
+    that hold bit c, joined and shifted right by c % 32 (__funnelshift_r),
+    low E bits kept. Done in numpy at every column offset 0-31; the spare
+    word keeps the second word inside the row."""
+    rng = np.random.default_rng(per_thread)
+    width = 200
+    mask = rng.random((3, width)) > 0.5
+    bits, row_words = GC.pack_mask(torch.from_numpy(mask))
+    words = bits.numpy().view(np.uint32).astype(np.uint64)
+    keep = (1 << per_thread) - 1
+    for c in range(0, width):
+        q = c >> 5
+        assert q + 1 < row_words
+        for y in range(3):
+            joined = (words[y, q + 1] << np.uint64(32)) | words[y, q]
+            got = int(joined >> np.uint64(c & 31)) & 0xffffffff & keep
+            cols = mask[y, c:c + per_thread]
+            want = sum(1 << e for e, p in enumerate(cols) if p)
+            assert got == want, (c, y)
+
+
+def test_windows_plain_source_outside_window_seeds_nothing():
+    """A source outside its window seeds nothing and forces no cell: its
+    map stays INF and its window is certified (nothing is wrong there)."""
+    mask = np.ones((64, 96), bool)
+    srcs = np.array([[-3, 10], [10, 100], [70, 10], [5, 5]], np.int32)
+    bits, row_words, N, origins, local = _windows(mask, srcs, 64)
+    maps, ok = GC.chamfer_windows_plain(bits, row_words, origins, local, 64,
+                                        2)
+    assert (maps[:3] == G.INF).all() and maps[3].min() == 0
+    assert ok[:N].tolist() == [1, 1, 1, 1]
+    got, _ = G.batched_windows(torch.from_numpy(mask),
+                               torch.from_numpy(srcs), 64, 2)
+    np.testing.assert_array_equal(maps[:N].numpy(), got.numpy())
+
+
+@pytest.mark.parametrize('family', sorted(MASKS))
+def test_window_bands_plain_equal_jax(family):
+    """K1's band pass (plain version) equals the Pallas route's
+    ``_window_bands`` on its crops. (A source at a negative coordinate is
+    left out: the Pallas route's crop gather wraps its index and forces a
+    cell at the far side of the window passable; ROADMAP F3.)"""
+    from axtrack_tpu.ops import geodesic_pallas as GP
+    make, window = MASKS[family]
+    mask, srcs = make()
+    bits, row_words, N, origins, local = _windows(mask, srcs, window)
+    Np = len(origins)
+    crops = GP._crops_for(jnp.asarray(mask), jnp.asarray(origins.numpy()),
+                          jnp.asarray(local.numpy()), window, Np)
+    lo, hi = GP._window_bands(crops)
+    got = GC.window_bands_plain(bits, row_words, origins, local, window)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.stack([np.asarray(lo), np.asarray(hi)],
+                                           -1))
+
+
+def _kernel_row_relax(cand, passable, E):
+    """numpy mirror of K1's row relax (csrc/chamfer.cu), in f32 as the
+    kernel computes it: each thread's E cells run both ways from INF, the
+    threads' runs are joined by segmented min-scans (segments end at
+    threads holding a blocked cell), and the carries enter each cell with
+    its distance to the thread's edge."""
+    f32, INF = np.float32, np.float32(G.INF)
+    T = len(cand) // E
+    x = np.where(passable, cand, INF).astype(f32).reshape(T, E)
+    w = np.where(passable, f32(1), INF).astype(f32).reshape(T, E)
+    f0, b0, lw, rw = (np.empty_like(x) for _ in range(4))
+    run, dist = np.full(T, INF, f32), np.zeros(T, f32)
+    for e in range(E):
+        run = np.minimum(x[:, e], run + w[:, e])
+        dist = dist + w[:, e]
+        f0[:, e], lw[:, e] = run, dist
+    run, dist = np.full(T, INF, f32), np.zeros(T, f32)
+    for e in range(E - 1, -1, -1):
+        run = np.minimum(x[:, e], run + w[:, e])
+        dist = dist + w[:, e]
+        b0[:, e], rw[:, e] = run, dist
+    broken = ~passable.reshape(T, E).all(axis=1)
+    lane = np.arange(T)
+    uf = np.where(f0[:, -1] < INF, f0[:, -1] - f32(E) * lane, INF).astype(f32)
+    ub = np.where(b0[:, 0] < INF, b0[:, 0] + f32(E) * lane, INF).astype(f32)
+    cl, cr = np.full(T, INF, f32), np.full(T, INF, f32)
+    for t in range(T):
+        seg_lo = max([j for j in range(t) if broken[j]], default=0)
+        seg_hi = min([j for j in range(t + 1, T) if broken[j]], default=T - 1)
+        if t > 0:
+            s = uf[seg_lo:t].min()
+            cl[t] = s + f32(E * (t - 1)) if s < INF else INF
+        if t < T - 1:
+            s = ub[t + 1:seg_hi + 1].min()
+            cr[t] = s - f32(E * (t + 1)) if s < INF else INF
+    v = np.minimum(np.minimum(f0, cl[:, None] + lw),
+                   np.minimum(b0, cr[:, None] + rw))
+    return v.reshape(-1)
+
+
+@pytest.mark.parametrize('E', [1, 4, 16])
+def test_kernel_row_relax_mirror_equals_plain(E):
+    """K1's f32 row algebra (mirrored in numpy) equals the plain version's
+    int64 row relax bit for bit, INF rounding included."""
+    rng = np.random.default_rng(E)
+    W = 32 * E
+    for trial in range(20):
+        passable = rng.random(W) > rng.choice([0.02, 0.2, 0.6])
+        cand = np.where(rng.random(W) < 0.1, rng.integers(0, 3 * W, W),
+                        G.INF_I)
+        want = G._row_min_plus(torch.from_numpy(cand.astype(np.int64)),
+                               torch.from_numpy(passable)).numpy()
+        got = _kernel_row_relax(cand.astype(np.float32), passable, E)
+        np.testing.assert_array_equal(got, want.astype(np.float32))
