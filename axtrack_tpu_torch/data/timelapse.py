@@ -1,17 +1,20 @@
-"""Timelapse dataset — the preprocessing + tiling data layer, inference
-subset.
+"""Timelapse dataset — the preprocessing, labels and tiling data layer.
 
-PyTorch counterpart of ``axtrack_tpu/data/timelapse.py`` for unlabelled
-inference movies: read + mask + offset + pad, the clip/log/standardize
-chain, the timepoint slice with temporal context, the untransformed tile
-stack with its kept-tile table, and the whole-object cache. The movie and
-its tiles live as tensors on ``device``.
+PyTorch counterpart of ``axtrack_tpu/data/timelapse.py``: read + mask +
+offset + pad, the clip/log/standardize chain, the motion channels, the
+anchor labels, the timepoint slice with temporal context, the tile stack
+with its kept-tile table, the YOLO targets and the per-epoch augmentation
+draw, and the whole-object cache. The movie, its tiles and its targets
+live as tensors on ``device``; the labels as numpy arrays
+(``ops/targets.py``).
 
-Left for later slices (ROADMAP): labels and YOLO targets, augmentation
-transforms, motion channels and the staged-u16 big-movie path (M13).
+Not ported (ROADMAP M13b): the JAX package's staged-u16 path and its
+chunked path for movies beyond the device budget. The port keeps the whole
+movie on the device, and raises for a movie beyond ``device_budget``.
 """
 import os
 import pickle
+import zlib
 
 import numpy as np
 import torch
@@ -19,7 +22,20 @@ import torch
 from ..config import resolve_device
 from ..ops import preproc as P
 from ..ops import tiling as TL
+from ..ops.targets import read_labels_csv, flat_labels, labels_to_yolo_grid
+from .augment import (draw_transform_config, config_to_transform_params,
+                      transform_frames, transform_anchors)
 from .tiffio import img_as_float32, read_tiff_raw
+
+
+def device_budget(device):
+    """Bytes of f32 movie the whole-movie path may hold on ``device``: a
+    quarter of a card's memory, since ``construct_tiles`` holds the movie,
+    its transformed copy, the padded tile stack and the kept tiles at once.
+    None (no limit) on the CPU."""
+    if device.type != 'cuda':
+        return None
+    return torch.cuda.get_device_properties(device).total_memory // 4
 
 
 class Timelapse:
@@ -29,18 +45,16 @@ class Timelapse:
                  use_transforms=(), contrast_llim=None, plot=False, pad=None,
                  Sy=12, Sx=12, tilesize=512, cache=None, from_cache=None,
                  temporal_context=2, notes=None, pixelsize=None, dt=None,
-                 incubation_time=None, seeding_datetime=None, device=None):
-        if labels_csv is not None:
-            raise NotImplementedError(
-                'labelled movies (YOLO targets) belong to the training port '
-                '(ROADMAP M13)')
-        if use_motion_filtered != 'exclude':
-            raise NotImplementedError(
-                'motion channels belong to the training port (ROADMAP M13)')
+                 incubation_time=None, seeding_datetime=None, device=None,
+                 seed=42):
+        """``seed`` (the run's SEED) and the name seed the augmentation
+        draws, as the JAX package seeds them from its global seed."""
         self.name = name
         print(f'Data: {name}')
         self.device = resolve_device(device)
         self.transform_configs = dict.fromkeys(use_transforms or (), 0)
+        self._rng = np.random.default_rng(
+            [int(seed), zlib.crc32((name or '').encode())])
 
         if from_cache:
             self._load_cache(from_cache)
@@ -58,6 +72,8 @@ class Timelapse:
         self.use_sparse = use_sparse
         self.use_motion_filtered = use_motion_filtered
         self.temporal_context = temporal_context
+        self.motion_gaussian_filter_std = 3
+        self.motion_lowerlim = .1
         self.Sy, self.Sx = Sy, Sx
         self.tilesize = tilesize
 
@@ -71,12 +87,16 @@ class Timelapse:
             frames, contrast_llim, log_correct, standardize,
             standardize_framewise, cache, plot)
         self.mask = mask
+        self.p_motion_seq, self.n_motion_seq = self._compute_motion(
+            frames, standardize, plot)
+        self.target = self._load_bboxes(labels_csv)
         self.timepoints_indices, self.sizet, frames = \
             self._slice_timepoints(frames)
         # X: dense frames incl. temporal-context neighbours, on device
         self.X = frames
 
-        self.X_tiled = None
+        self.X_tiled, self.target_tiled, self.tile_info = None, None, None
+        self.last_transform_configs = None
         self._tile_flat_idx, self._tile_yx = None, None
         if cache:
             self._save_cache(cache)
@@ -89,6 +109,14 @@ class Timelapse:
         numpy mask)."""
         print('Loading .tif image...', end='', flush=True)
         raw = path if isinstance(path, np.ndarray) else read_tiff_raw(path)
+        n_seqs = 1 if self.use_motion_filtered == 'exclude' else 3
+        budget = device_budget(self.device)
+        if budget is not None and raw.size * 4 * n_seqs > budget:
+            raise NotImplementedError(
+                f'{raw.size * 4 * n_seqs / 1e9:.1f} GB of f32 movie is '
+                f'beyond the whole-movie budget of {budget / 1e9:.1f} GB on '
+                f'{self.device}: the staged-u16 and chunked paths for such '
+                'movies are a later slice of the port (ROADMAP M13b)')
         if raw.dtype in (np.uint8, np.uint16):
             # img_as_float32 on the device: the same IEEE f32 division
             scale = np.float32(255.0 if raw.dtype == np.uint8 else 65535.0)
@@ -181,9 +209,39 @@ class Timelapse:
         print('Done.')
         return x, stnd_scaler
 
+    def _compute_motion(self, frames, standardize, plot):
+        """Motion channels (deprecated path, reference Timelapse.py:328-368).
+        Returns (pos, neg) [T, H, W] on device, or (None, None) when
+        excluded."""
+        if self.use_motion_filtered == 'exclude':
+            return None, None
+        pos, neg = P.motion_frames(frames,
+                                   sigma=self.motion_gaussian_filter_std,
+                                   lowerlim=self.motion_lowerlim)
+        if standardize:
+            _, pstd, _ = P.nonzero_stats(pos[1:])
+            _, nstd, _ = P.nonzero_stats(neg[1:])
+            pos = pos / pstd.mean()
+            neg = neg / nstd.mean()
+        self._capture(plot, 'Positive Motion', pos)
+        self._capture(plot, 'Negative Motion', neg)
+        return pos, neg
+
+    def _load_bboxes(self, labels_csv):
+        """Anchor labels of every movie frame (reference
+        Timelapse.py:370-384): dict of 'anchor_y', 'anchor_x' (f64 [T, A],
+        NaN where unlabelled, shifted by the padding) and 'axons' (names).
+        No labels file gives A = 0."""
+        if labels_csv is None:
+            empty = np.zeros((self.sizet, 0))
+            return {'anchor_y': empty, 'anchor_x': empty.copy(),
+                    'axons': []}
+        ay, ax, axons = read_labels_csv(labels_csv, self.pad)
+        return {'anchor_y': ay, 'anchor_x': ax, 'axons': axons}
+
     def _slice_timepoints(self, frames):
-        """Slice to requested timepoints + context neighbours
-        (reference Timelapse.py:386-413)."""
+        """Slice frames, motion channels and labels to the requested
+        timepoints + context neighbours (reference Timelapse.py:386-413)."""
         tps = self.timepoints
         print(f'Slicing timepoints to t={tps} (n={len(tps)})')
         self.t_discontinuities = [i for i in range(1, len(tps))
@@ -198,11 +256,19 @@ class Timelapse:
             all_tps = list(tps)
         timepoints_indices = [all_tps.index(tp) for tp in tps]
         if all_tps != list(range(frames.shape[0])):
-            frames = frames[torch.as_tensor(all_tps, device=frames.device)]
+            sel = torch.as_tensor(all_tps, device=frames.device)
+            frames = frames[sel]
+            if self.p_motion_seq is not None:
+                self.p_motion_seq = self.p_motion_seq[sel]
+                self.n_motion_seq = self.n_motion_seq[sel]
+        for k in ('anchor_y', 'anchor_x'):
+            self.target[k] = self.target[k][all_tps]
         return timepoints_indices, len(tps), frames
 
     # ------------------------------------------------------------ caching
-    _CACHE_SKIP = ('_padded_mask_dev',)
+    _CACHE_SKIP = ('_rng', 'device', '_padded_mask_dev', '_mask_bits_dev')
+    _DEVICE_ARRAYS = ('X', 'X_tiled', 'target_tiled', 'p_motion_seq',
+                      'n_motion_seq')
 
     def _save_cache(self, cache):
         with open(f'{cache}/{self.name}_dataset_cached.pkl', 'wb') as file:
@@ -210,7 +276,7 @@ class Timelapse:
             state = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
                          else v)
                      for k, v in self.__dict__.items()
-                     if k not in self._CACHE_SKIP and k != 'device'}
+                     if k not in self._CACHE_SKIP}
             pickle.dump(state, file, protocol=4)
         print('Done.\n', flush=True)
 
@@ -222,7 +288,7 @@ class Timelapse:
         with open(dataset_file, 'rb') as file:
             cached = pickle.load(file)
         for n, v in cached.items():
-            if n in ('X', 'X_tiled') and v is not None:
+            if n in self._DEVICE_ARRAYS and v is not None:
                 v = torch.from_numpy(v).to(self.device)
             setattr(self, n, v)
         self._tiles_clean = False
@@ -230,27 +296,73 @@ class Timelapse:
 
     # ----------------------------------------------------------- tiling
     def construct_tiles(self, force_no_transformation=False):
-        """Build X_tiled and the kept-tile table (reference
-        Timelapse.py:492-566), untransformed. X_tiled: f32[T_all, K, ts, ts]
-        on device."""
-        if self.transform_configs and not force_no_transformation:
-            raise NotImplementedError(
-                'augmentation transforms belong to the training port '
-                '(ROADMAP M13)')
-        if self.X_tiled is not None and getattr(self, '_tiles_clean', False):
+        """Build X_tiled, target_tiled and tile_info for the current epoch
+        (reference Timelapse.py:492-566). Each call with transforms draws
+        a new configuration from the dataset's generator
+        (``last_transform_configs``); untransformed tiles, once built, are
+        reused.
+
+        X_tiled: f32[T_all, K, ts, ts] on device ([T_all, K, C_col, ts, ts]
+        in the motion modes, whose motion channels stay untransformed as in
+        the JAX package); target_tiled: f32[T_all, K, Sx, Sy, 4] on device;
+        tile_info: numpy f32[ny, nx, T_all, 2] of (tile non-empty, positive
+        labels in it)."""
+        wants_clean = force_no_transformation or not self.transform_configs
+        if (wants_clean and self.X_tiled is not None
+                and getattr(self, '_tiles_clean', False)):
             return
+        self._tiles_clean = wants_clean
+        anchor_y, anchor_x = self.target['anchor_y'], self.target['anchor_x']
+        self.last_transform_configs = None
+        dy = dx = 0
+        flip_y = flip_x = False
+        angle = None
+        if self.transform_configs and not force_no_transformation:
+            cfg = draw_transform_config(self.transform_configs, self._rng)
+            dy, dx, flip_y, flip_x, angle = config_to_transform_params(cfg)
+            anchor_y, anchor_x = transform_anchors(
+                anchor_y, anchor_x, angle, flip_y, flip_x, dy, dx,
+                self.sizey, self.sizex)
+            self.last_transform_configs = cfg
+            print(f'New transform config set: {cfg}')
         print(f'Tiling {self.name} data...', end='', flush=True)
         ts = self.tilesize
         T_all = self.X.shape[0]
-        tiles = TL.tile_frames(self.X, ts)           # [T_all, ny, nx, ts, ts]
-        keep = TL.nonempty_tile_mask(tiles)
+        X = transform_frames(self.X, dy=dy, dx=dx, flip_y=flip_y,
+                             flip_x=flip_x, angle=angle or 0.0)
+        tiles = TL.tile_frames(X, ts)                # [T_all, ny, nx, ts, ts]
+        non_empty = (tiles > 0).any(dim=4).any(dim=3)        # [T, ny, nx]
+        keep = non_empty.any(dim=0).cpu().numpy()
         if not keep.any():
             keep[0, 0] = True                        # degenerate all-empty
         self._tile_flat_idx, self._tile_yx = TL.tile_index_table(keep)
+        kept = torch.as_tensor(self._tile_flat_idx, device=X.device).long()
         flat = tiles.reshape(T_all, self.ytiles * self.xtiles, ts, ts)
-        self.X_tiled = flat[:, torch.as_tensor(self._tile_flat_idx,
-                                               device=flat.device).long()]
-        self._tiles_clean = True
+        if self.use_motion_filtered == 'exclude':
+            self.X_tiled = flat[:, kept]
+        else:
+            # (img?, pos, neg) colour channels a tile (Timelapse.py:426-433)
+            chans = [] if self.use_motion_filtered == 'only' else [flat]
+            for mseq in (self.p_motion_seq, self.n_motion_seq):
+                chans.append(TL.tile_frames(mseq, ts).reshape(
+                    T_all, self.ytiles * self.xtiles, ts, ts))
+            self.X_tiled = torch.stack([c[:, kept] for c in chans], dim=2)
+        del tiles, flat, X
+
+        grid = labels_to_yolo_grid(
+            *flat_labels(anchor_y, anchor_x), ny=self.ytiles, nx=self.xtiles,
+            Sy=self.Sy, Sx=self.Sx, tilesize=ts, n_frames=T_all,
+            device=self.device)
+        grid = grid.reshape(T_all, self.ytiles * self.xtiles, self.Sx,
+                            self.Sy, 4)
+        self.target_tiled = grid[:, kept]
+        # tile_info [ny, nx, T_all, 2] (Timelapse.py:551-553)
+        npos = torch.zeros((T_all, self.ytiles * self.xtiles),
+                           device=self.device)
+        npos[:, kept] = self.target_tiled[..., 0].sum((-1, -2))
+        info = torch.stack([non_empty.to(torch.float32),
+                            npos.reshape(non_empty.shape)], -1)
+        self.tile_info = info.movedim(0, 2).cpu().numpy()
         print('Done.', flush=True)
 
     # ------------------------------------------------- dataset interface
@@ -275,14 +387,26 @@ class Timelapse:
         fi = int(self._tile_flat_idx[tile_idx])
         return divmod(fi, self.xtiles)
 
+    def __getitem__(self, idx):
+        """(X f32[ts, ts, C] NHWC, target f32[Sx, Sy, 4]) for one
+        (timepoint, tile) pair, on device (reference Timelapse.py:111-125;
+        the layout of ``axtrack_tpu``'s version)."""
+        t_idx, tile_idx = self.unfold_idx(idx)
+        t_all = self.timepoints_indices[t_idx]
+        tc = self.temporal_context
+        X = self.X_tiled[t_all - tc:t_all + tc + 1, tile_idx]
+        X = X.reshape(-1, *X.shape[-2:])       # motion modes: frame-major
+        return X.movedim(0, -1), self.target_tiled[t_all, tile_idx]
+
     def get_frametiles_stack(self, timepoint):
-        """All tiles of one frame: (f32[K, ts, ts, C] NHWC, None) — the
-        layout of ``axtrack_tpu``'s version; unlabelled data has no target
-        grid."""
+        """All tiles of one frame: (f32[K, ts, ts, C] NHWC, f32[K, Sx, Sy,
+        4]) on device, the layout of ``axtrack_tpu``'s version (reference
+        Timelapse.py:150-157)."""
         t_all = self.timepoints_indices[timepoint]
         tc = self.temporal_context
-        X = self.X_tiled[t_all - tc:t_all + tc + 1]
-        return X.movedim(0, -1), None
+        X = self.X_tiled[t_all - tc:t_all + tc + 1].transpose(0, 1)
+        X = X.reshape(X.shape[0], -1, *X.shape[-2:])      # frame-major
+        return X.movedim(1, -1), self.target_tiled[t_all]
 
     def get_frame_image(self, timepoint):
         """Full processed frame f32[H, W] (a device tensor)."""

@@ -7,6 +7,10 @@ padding 1, BatchNorm eps 1e-5, activation; 'M' is a 2x2 max-pool), then
 ``fcs``: Flatten (NCHW order) -> Linear/activation per the FC spec -> the
 Sy*Sx*3 head, reshaped to the grid [N, Sx, Sy, 3].
 
+In train mode the BatchNorm layers update their running statistics as
+flax does (momentum 0.9, the biased batch variance; ``FlaxBatchNorm2d``)
+and dropout draws from an explicit generator (``SeededDropout``).
+
 ``weights_from_jax`` carries the flax variables of ``axtrack_tpu`` across:
 conv kernels HWIO -> OIHW, Dense kernels [in, out] -> [out, in], and FC1's
 input rows permuted from the flax NHWC flatten order to this module's NCHW
@@ -39,6 +43,47 @@ def make_activation(spec):
     raise ValueError(f'unknown activation {spec!r}')
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose train-mode update of the running statistics is
+    flax's (``axtrack_tpu/models/yolo.py:67-68``): running = 0.9 * running
+    + 0.1 * batch statistic, with the *biased* batch variance (torch's own
+    update uses the unbiased one). Normalisation is unchanged: batch
+    statistics in train mode, running ones in eval mode."""
+
+    def __init__(self, num_features):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return nn.functional.batch_norm(x, None, None, self.weight, self.bias,
+                                        True, 0.0, self.eps)
+
+
+class SeededDropout(nn.Module):
+    """Dropout whose train-mode mask is drawn from a ``torch.Generator`` on
+    the input's device, seeded with ``seed`` at its first use."""
+
+    def __init__(self, p, seed=0):
+        super().__init__()
+        self.p, self.seed = float(p), int(seed)
+        self._gen = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self._gen is None or self._gen.device != x.device:
+            self._gen = torch.Generator(device=x.device).manual_seed(
+                self.seed)
+        keep = torch.rand(x.shape, generator=self._gen, device=x.device)
+        return torch.where(keep >= self.p, x / (1.0 - self.p), 0.0)
+
+
 class CNNBlock(nn.Module):
     """Conv2d + BatchNorm + activation (reference model.py:5-18)."""
 
@@ -47,7 +92,7 @@ class CNNBlock(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
                               padding=1, groups=groups, bias=True)
-        self.batchnorm = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.batchnorm = FlaxBatchNorm2d(out_channels)
         self.activation = make_activation(activation)
 
     def forward(self, x):
@@ -75,7 +120,7 @@ class YOLOAxTrack(nn.Module):
     f32[N, Sx, Sy, 3] (dim 1 is the x grid cell, model.py:123)."""
 
     def __init__(self, architecture, activation=('leaky_relu', 0.1),
-                 tilesize=512, Sy=12, Sx=12, in_channels=5):
+                 tilesize=512, Sy=12, Sx=12, in_channels=5, seed=0):
         super().__init__()
         if isinstance(architecture, str):
             raise NotImplementedError(
@@ -96,12 +141,12 @@ class YOLOAxTrack(nn.Module):
         C, H, W = conv_out_shape(conv_spec, tilesize)
         self.fcs = nn.Sequential(nn.Flatten())
         d = C * H * W
-        for element_type, param in fc_spec:
+        for j, (element_type, param) in enumerate(fc_spec):
             if element_type == 'FC':
                 self.fcs.append(nn.Linear(d, param))
                 d = param
             elif element_type == 'dropout':
-                self.fcs.append(nn.Dropout(param))
+                self.fcs.append(SeededDropout(param, seed=seed + j))
             elif element_type == 'activation':
                 self.fcs.append(make_activation(param))
             else:
@@ -125,7 +170,8 @@ def build_model(params):
                        activation=params['ACTIVATION_FUNCTION'],
                        tilesize=params['TILESIZE'], Sy=params['SY'],
                        Sx=params['SX'],
-                       in_channels=initial_in_channels(params))
+                       in_channels=initial_in_channels(params),
+                       seed=params.get('SEED', 0))
 
 
 @torch.no_grad()

@@ -355,21 +355,26 @@ def batched_windows_probed(passable_padded, srcs_yx, window, max_sweeps=1,
                            bits=None):
     """``max_sweeps`` sweeps of K1 plus the exactness certificate of the N
     real maps. ``bits`` is ``pack_mask(passable_padded)`` when the caller
-    keeps it. Returns (dmaps f32[N, W, W], origins[N, 2], converged)."""
+    keeps it. Returns (dmaps f32[N, W, W], origins[N, 2], converged).
+
+    ``converged`` holds only when every real window's flag is 1: K1 flags
+    a window whose origin leaves the bitmap with -1 (its maps are INF),
+    and that counts as not certified."""
     N, Np, origins, local = _pad_srcs(passable_padded, srcs_yx, window)
     bits = pack_mask(passable_padded) if bits is None else bits
     dmaps, ok = chamfer_windows(*bits, origins, local, window, max_sweeps)
-    return dmaps[:N], origins[:N], ok[:N].all()
+    return dmaps[:N], origins[:N], (ok[:N] == 1).all()
 
 
 def _continue_windows(passable_padded, srcs_yx, dmaps, window, sweeps,
                       bits=None):
-    """``sweeps`` more sweeps from earlier maps. Returns (dmaps, converged)."""
+    """``sweeps`` more sweeps from earlier maps. Returns (dmaps, converged),
+    ``converged`` as in ``batched_windows_probed`` (a -1 flag fails it)."""
     N, Np, origins, local = _pad_srcs(passable_padded, srcs_yx, window)
     bits = pack_mask(passable_padded) if bits is None else bits
     init = torch.cat([dmaps, dmaps.new_full((Np - N, window, window), INF)])
     out, ok = chamfer_windows(*bits, origins, local, window, sweeps, init)
-    return out[:N], ok[:N].all()
+    return out[:N], (ok[:N] == 1).all()
 
 
 def batched_windows_converged(passable_padded, srcs_yx, window,

@@ -5,10 +5,10 @@ offset -> clip -> log-adjust -> standardize, elementwise on whatever device
 the frames live on. Statistics follow the reference: per-frame mean/std
 over the *nonzero* pixels only (Timelapse.py:290-291).
 
-Motion frames (``motion_frames``) and the staged-u16 path are not on the
-deployed inference path; they come with the training port (ROADMAP M13).
+The staged-u16 path of the JAX package is not ported (ROADMAP M13b).
 """
 import torch
+import torch.nn.functional as F
 
 
 def adjust_log(image, gain=1.0):
@@ -64,3 +64,33 @@ def compute_stnd_scaler(frames, standardize='zscore'):
     if standardize == '0to1':
         return float(mx.max()), 0.0
     raise ValueError(f'unknown standardize mode {standardize!r}')
+
+
+def gaussian_kernel1d(sigma, truncate=4.0):
+    radius = int(truncate * float(sigma) + 0.5)
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
+def gaussian_blur(frames, sigma=3.0):
+    """Separable gaussian blur of [T, H, W] with zero padding (the JAX
+    package's ``gaussian_blur``, replacing skimage.filters.gaussian,
+    Timelapse.py:340)."""
+    k = gaussian_kernel1d(sigma).to(frames.device)
+    r = (k.shape[0] - 1) // 2
+    x = F.conv2d(frames[:, None], k.reshape(1, 1, -1, 1), padding=(r, 0))
+    x = F.conv2d(x, k.reshape(1, 1, 1, -1), padding=(0, r))
+    return x[:, 0]
+
+
+def motion_frames(frames, sigma=3.0, lowerlim=0.1):
+    """Temporal-difference motion channels (deprecated in the reference,
+    Timelapse.py:328-368): the blurred frame difference split into its
+    positive and negative parts, |diff| < lowerlim zeroed. Returns
+    (pos [T, H, W], neg [T, H, W]); frame 0 is zeros."""
+    diff = gaussian_blur(frames[1:] - frames[:-1], sigma)
+    diff = torch.where(diff.abs() < lowerlim, 0.0, diff)
+    zero = torch.zeros_like(frames[:1])
+    return (torch.cat([zero, diff.clamp_min(0.0)]),
+            torch.cat([zero, (-diff).clamp_min(0.0)]))

@@ -9,6 +9,7 @@ import os
 import json
 from collections import OrderedDict
 
+from . import config
 from .config import (TRAINING_DATA_DIR, OUTPUT_DIR, DEFAULT_DEVICE,
                      DEFAULT_NUM_WORKERS, SPACER)
 
@@ -156,16 +157,18 @@ def write_parameters(file, params):
 
 
 def load_parameters(exp_name, run, from_directory=None):
-    """Load params from an explicit bundle directory (counterpart of
-    ``load_parameters`` in ``axtrack_tpu/params.py``). Training run
-    directories belong to the training slice of the port (ROADMAP M13)."""
+    """Load params from a run directory (OUTPUT_DIR/runs/<exp_name>/<run>)
+    or an explicit bundle directory, over the defaults (reference
+    exp_parameters.py:110-117)."""
     if exp_name is not None and run is not None:
-        raise NotImplementedError(
-            'loading parameters from a training run directory is part of '
-            'the training port (ROADMAP M13); pass from_directory=')
-    if not from_directory:
-        raise ValueError('pass from_directory')
-    with open(f'{from_directory}/params.json') as f:
+        from .utils.rundirs import get_run_dir
+        run_dir = get_run_dir(f'{config.OUTPUT_DIR}/runs/{exp_name}/', run)
+        file = f'{run_dir}/params.json'
+    elif from_directory:
+        file = f'{from_directory}/params.json'
+    else:
+        raise ValueError('pass exp_name+run or from_directory')
+    with open(file) as f:
         loaded = _from_jsonable(json.load(f))
     params = get_default_parameters()
     params.update(loaded)
@@ -194,3 +197,30 @@ def params2text(params):
         text += f'\t\t{key:20} {val}\n'
     text += SPACER + '\n'
     return text
+
+
+def check_parameters(passed_params, default_params):
+    """Reject unknown keys (reference exp_parameters.py:145-149); raises
+    instead of the reference's exit(1)."""
+    inval_keys = [key for key in passed_params if key not in default_params]
+    if inval_keys:
+        raise ValueError(f'Invalid parameters passed: {inval_keys}')
+
+
+def to_device_specifc_params(model_parameters, local_default_params,
+                             from_cache=None, cache=None,
+                             fill_missing_keys=True):
+    """Swap the machine-specific keys for local ones (reference
+    exp_parameters.py:151-162; the name, typo included, is the
+    reference's)."""
+    for key in ('TIMELAPSE_FILE', 'LABELS_FILE', 'MASK_FILE', 'DEVICE'):
+        model_parameters[key] = local_default_params[key]
+    if from_cache is not None:
+        model_parameters['FROM_CACHE'] = from_cache
+    if cache is not None:
+        model_parameters['CACHE'] = cache
+    if fill_missing_keys:
+        for key, val in local_default_params.items():
+            if key not in model_parameters:
+                model_parameters[key] = val
+    return model_parameters

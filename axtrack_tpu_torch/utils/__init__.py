@@ -1,11 +1,14 @@
 """Infrastructure helpers (counterpart of ``axtrack_tpu/utils``): seeding,
-the standardization scaler of a bundle, and the tri-state stage cache."""
+the standardization scaler of a bundle, the preprocessing samples of a
+run, run directories and the tri-state stage cache."""
+import csv
 import pickle
 
 import numpy as np
 import torch
 
 from .caching import StageCache  # noqa: F401
+from .rundirs import create_logging_dirs, get_run_dir  # noqa: F401
 
 
 def set_seed(seed):
@@ -26,3 +29,34 @@ def get_data_standardization_scaler(fname):
         return (kind, tuple(scalers) if scalers is not None else None)
     with open(fname, 'rb') as file:
         return pickle.load(file)
+
+
+PREPROC_SAMPLES = int(1e6)
+
+
+def save_preproc_metrics(dest_dir, dataset1, dataset2=None):
+    """Sample PREPROC_SAMPLES pixels (with replacement) of the first and
+    last frame after each captured preprocessing step to CSV, for
+    distribution-shift checks (reference utils.py:90-110). The CSV has the
+    JAX package's layout: three header rows (dataset, step, 't_0'/'t_-1'),
+    then one row a sample led by its index. Returns the file name."""
+    n = PREPROC_SAMPLES
+    idx = np.random.default_rng().choice(
+        dataset1.plot_data['Original'][0].size, n)
+    cols, names = [], []
+    for ds in [dataset1] + ([dataset2] if dataset2 is not None else []):
+        for step, (first, last) in ds.plot_data.items():
+            for frame, tag in ((first, 't_0'), (last, 't_-1')):
+                cols.append(np.asarray(frame, np.float32).reshape(-1)[idx])
+                names.append((ds.name, step, tag))
+    fname = f'{dest_dir}/{dataset1.name}_preproc_data.csv'
+    with open(fname, 'w', newline='') as f:
+        header = csv.writer(f, lineterminator='\n')
+        for level in range(3):
+            header.writerow([''] + [nm[level] for nm in names])
+        for lo in range(0, n, 2 ** 16):           # rows in chunks
+            hi = min(lo + 2 ** 16, n)
+            np.savetxt(f, np.column_stack([np.arange(lo, hi)]
+                                          + [c[lo:hi] for c in cols]),
+                       fmt=['%d'] + ['%.9g'] * len(cols), delimiter=',')
+    return fname

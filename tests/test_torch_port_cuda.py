@@ -1,18 +1,23 @@
-"""The port on the GPU: kernel K1 against its plain version.
+"""The port on the GPU: kernel K1 against its plain version, and the
+training path's device code against the CPU.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a) and are marked ``cuda``;
 on a machine without one they skip. Run them on the card with
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_port_cuda.py``.
 K1 reads the bit-packed mask and returns the maps and one certificate flag
 a window; both must equal the plain version's exactly (the maps are
-integer step counts).
+integer step counts). The YOLO targets (with colliding labels) and the
+translate/flip transforms must equal the CPU's exactly; a train step's
+loss agrees with the CPU's to rtol 1e-4 (cuDNN sums in another order).
 """
 import numpy as np
 import pytest
 import torch
 
+from axtrack_tpu_torch.data import augment as PA
 from axtrack_tpu_torch.ops import geodesic as G
 from axtrack_tpu_torch.ops import geodesic_cuda as GC
+from axtrack_tpu_torch.ops import targets as PTG
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -88,3 +93,73 @@ def test_k1_rejects_bad_inputs(dev):
     with pytest.raises(ValueError):
         GC.chamfer_kernel(bits, row_words, o, o, 64, 1,
                           init=torch.zeros(2, 64, 60, device=dev))
+
+
+def test_k1_out_of_range_origin_fails_the_certificate(dev, monkeypatch):
+    """K1 flags a window whose origin leaves the bitmap with -1 and INF
+    maps; the flush's certificate must then fail (ROADMAP F4)."""
+    mask = torch.ones(200, 240, dtype=torch.bool, device=dev)
+    bits, row_words = GC.pack_mask(mask)
+    srcs = torch.tensor([[20, 20], [100, 100], [150, 200]], device=dev)
+    origins, local = G.window_origins(srcs, 64, 200, 240)
+    origins[1, 0] = 190                        # rows 190..253 of 200
+    maps, ok = GC.chamfer_windows(bits, row_words, origins, local, 64, 64)
+    torch.cuda.synchronize()
+    assert ok.tolist() == [1, -1, 1]
+    assert bool((maps[1] == G.INF).all())
+    _, _, converged = GC.batched_windows_probed(mask, srcs, 64,
+                                                max_sweeps=64)
+    assert bool(converged)
+    real = GC.window_origins
+
+    def shifted(srcs_p, window, Hp, Wp):
+        o, loc = real(srcs_p, window, Hp, Wp)
+        o[1, 0] = Hp - window // 2
+        return o, loc
+    monkeypatch.setattr(GC, 'window_origins', shifted)
+    dmaps, _, converged = GC.batched_windows_probed(mask, srcs, 64,
+                                                    max_sweeps=64)
+    assert not bool(converged)
+    _, converged = GC._continue_windows(mask, srcs, dmaps, 64, 1)
+    assert not bool(converged)
+
+
+def test_targets_and_transforms_equal_cpu(dev):
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 300, (400, 2)).astype(np.float32)  # collisions too
+    ids = rng.integers(0, 40, 400).astype(np.int32)
+    t = rng.integers(0, 5, 400).astype(np.int32)
+    valid = rng.random(400) > 0.2
+    cpu = PTG.labels_to_yolo_grid(a, ids, t, valid, 3, 3, 12, 12, 128, 5)
+    gpu = PTG.labels_to_yolo_grid(a, ids, t, valid, 3, 3, 12, 12, 128, 5,
+                                  device=dev)
+    assert torch.equal(gpu.cpu(), cpu)
+    X = torch.from_numpy(rng.random((3, 70, 90)).astype(np.float32))
+    for kw in (dict(dy=12, dx=-30), dict(flip_y=True), dict(flip_x=True),
+               dict(dy=-5, dx=7, flip_y=True, flip_x=True)):
+        assert torch.equal(PA.transform_frames(X.to(dev), **kw).cpu(),
+                           PA.transform_frames(X, **kw))
+
+
+def test_train_step_gpu_equals_cpu(dev):
+    from axtrack_tpu_torch.models.yolo import build_model, init_weights
+    from axtrack_tpu_torch.params import get_default_parameters
+    from axtrack_tpu_torch.train import engine as PE
+    P = get_default_parameters()
+    P.update(TILESIZE=128, ARCHITECTURE=[
+        [(3, 8, 2, 1), (3, 16, 2, 1), 'M', (3, 16, 1, 1), 'M'],
+        [('FC', 64), ('activation', 'sigmoid')]])
+    rng = np.random.default_rng(1)
+    X = torch.from_numpy(rng.random((6, 5, 128, 128)).astype(np.float32))
+    tgt = torch.zeros(6, 12, 12, 4)
+    tgt[:, 3, 4] = torch.tensor([1.0, 0.3, 0.6, 0.0])
+    losses = {}
+    for d in ('cpu', dev):
+        P['DEVICE'] = str(d)
+        model = init_weights(build_model(P), torch.Generator().manual_seed(0))
+        state = PE.TrainState(model.to(d), None, P)
+        state.optimizer = PE.make_optimizer(state.model, P)
+        with PE.exact_f32():
+            losses[str(d)] = [float(PE.train_step(state, X.to(d), tgt.to(d))
+                                    ['total_summed_loss']) for _ in range(3)]
+    np.testing.assert_allclose(losses[str(dev)], losses['cpu'], rtol=1e-4)

@@ -145,7 +145,7 @@ def test_timelapse_equals_jax(tmp_path, variant):
 
 
 def test_timelapse_cache_roundtrip(tmp_path):
-    frames, mask, _ = make_synthetic_timelapse(T=6, H=64, W=128, n_axons=2,
+    frames, mask, _, _ = make_synthetic_timelapse(T=6, H=64, W=128, n_axons=2,
                                                seed=5, n_channels=2)
     np.save(tmp_path / 'mask.npy', mask)
     ptiff.write_tiff(str(tmp_path / 'm.tif'), frames)

@@ -49,7 +49,7 @@ TINY = [[(3, 8, 2, 1), 'M', (3, 16, 1, 1), 'M'],
 
 def _setup(tmp_path, **overrides):
     """Movie + mask + a bundle dir (params.json, scaler) in tmp_path."""
-    frames, mask, tracks = make_synthetic_timelapse(
+    frames, mask, tracks, _ = make_synthetic_timelapse(
         T=8, H=128, W=256, n_axons=4, seed=11, n_channels=3)
     data = tmp_path / 'data'
     data.mkdir()
