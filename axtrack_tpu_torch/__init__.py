@@ -8,12 +8,22 @@ training (``train.experiment.run_experiment`` -> ``deploy_run``). The
 package imports no JAX and nothing of ``axtrack_tpu``; it runs on the GPU
 unless a caller passes ``device='cpu'`` or sets ``AXTRACK_DEVICE=cpu``.
 """
-from .interface import (setup_inference, prepare_input_data, inference,
-                        inference_many, visualize_inference, deploy_run)
-from .config import (PKG_DIR, DEPLOYED_MODEL_DIR, OUTPUT_DIR,
-                     TRAINING_DATA_DIR, DEFAULT_DEVICE, resolve_device)
+import importlib
 
-__all__ = ['setup_inference', 'prepare_input_data', 'inference',
-           'inference_many', 'deploy_run', 'visualize_inference', 'PKG_DIR',
-           'DEPLOYED_MODEL_DIR', 'OUTPUT_DIR', 'TRAINING_DATA_DIR',
-           'DEFAULT_DEVICE', 'resolve_device']
+# the public names resolve on first use (PEP 562), so a process that needs
+# only the host tracking code (the MCF search's spawned workers) does not
+# import torch
+_LAZY = {name: '.interface' for name in (
+    'setup_inference', 'prepare_input_data', 'inference', 'inference_many',
+    'visualize_inference', 'deploy_run')}
+_LAZY.update({name: '.config' for name in (
+    'PKG_DIR', 'DEPLOYED_MODEL_DIR', 'OUTPUT_DIR', 'TRAINING_DATA_DIR',
+    'DEFAULT_DEVICE', 'resolve_device')})
+
+__all__ = list(_LAZY)
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+    return getattr(importlib.import_module(_LAZY[name], __name__), name)

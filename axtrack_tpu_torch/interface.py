@@ -52,9 +52,20 @@ def _get_params(num_workers=None, device=None, deployed_dir=None):
     return parameters
 
 
+# compute dtypes of each precision (axtrack_tpu/interface.py:44-67): 'mixed'
+# is bf16 convs with an f32 FC head, 'bf16' the whole net in bf16 but the
+# last layer
+PRECISIONS = {'f32': (torch.float32, None),
+              'mixed': (torch.bfloat16, torch.float32),
+              'bf16': (torch.bfloat16, None)}
+
+
 def _get_model(parameters, weights, init_seed, deployed_dir,
-               print_params=False):
-    model = build_model(parameters)
+               print_params=False, precision='f32'):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be 'f32', 'mixed' or 'bf16', "
+                         f"got {precision!r}")
+    model = build_model(parameters, *PRECISIONS[precision])
     if weights is None and init_seed is None:
         if not glob.glob(f'{deployed_dir}/E*.pt'):
             raise ValueError(
@@ -87,17 +98,14 @@ def setup_inference(dest_dir, print_params=False,
     DEVICE resolved ('auto' means 'cuda'), the detector on that device, and
     the bundle's standardization scaler, e.g. ('zscore', (0.0142, 0.0128)).
     The weights are ``weights=``, else seeded by ``init_seed=``, else the
-    bundle's first ``E*.pt``.
+    bundle's first ``E*.pt``. ``precision`` sets the compute dtypes only
+    ('f32', 'mixed' or 'bf16'; ``PRECISIONS``): the weights stay f32.
     """
-    if precision != 'f32':
-        raise NotImplementedError(
-            f"precision={precision!r}: reduced precision is a later slice of "
-            "the port (ROADMAP M2, 'mixed'/'bf16')")
     deployed_dir = deployed_dir or DEPLOYED_MODEL_DIR
     parameters = _get_params(num_workers, device, deployed_dir)
     set_seed(parameters['SEED'])
     model = _get_model(parameters, weights, init_seed, deployed_dir,
-                       print_params)
+                       print_params, precision)
     stnd_scaler = get_data_standardization_scaler(
         f'{deployed_dir}/train_stnd_scaler.pkl')
     os.makedirs(dest_dir, exist_ok=True)

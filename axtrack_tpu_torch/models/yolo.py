@@ -11,6 +11,14 @@ In train mode the BatchNorm layers update their running statistics as
 flax does (momentum 0.9, the biased batch variance; ``FlaxBatchNorm2d``)
 and dropout draws from an explicit generator (``SeededDropout``).
 
+Compute dtypes follow the flax module's casts (``dtype``, ``fc_dtype``;
+``axtrack_tpu/models/yolo.py:50-67,92-148``), not ``torch.autocast``: each
+conv casts its input, weight and bias to ``dtype``, convolves and adds the
+bias in ``dtype``; BatchNorm, the activation and the max-pool after it run
+in f32; the flattened features are f32; each FC layer of the spec computes
+in ``fc_dtype`` (None: ``dtype``) and is cast back to f32; the last layer
+is always f32. Weights and the state dict stay f32.
+
 ``weights_from_jax`` carries the flax variables of ``axtrack_tpu`` across:
 conv kernels HWIO -> OIHW, Dense kernels [in, out] -> [out, in], and FC1's
 input rows permuted from the flax NHWC flatten order to this module's NCHW
@@ -85,18 +93,46 @@ class SeededDropout(nn.Module):
 
 
 class CNNBlock(nn.Module):
-    """Conv2d + BatchNorm + activation (reference model.py:5-18)."""
+    """Conv2d + BatchNorm + activation (reference model.py:5-18). The conv
+    computes in ``dtype`` (its bias added in ``dtype`` after the
+    convolution, as flax does); BatchNorm and the activation in f32."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride, groups,
-                 activation):
+                 activation, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
                               padding=1, groups=groups, bias=True)
         self.batchnorm = FlaxBatchNorm2d(out_channels)
         self.activation = make_activation(activation)
 
+    def _conv(self, x):
+        if self.dtype == torch.float32:
+            return self.conv(x)
+        c, dt = self.conv, self.dtype
+        y = nn.functional.conv2d(x.to(dt), c.weight.to(dt), None, c.stride,
+                                 c.padding, c.dilation, c.groups)
+        return (y + c.bias.to(dt)[:, None, None]).float()
+
     def forward(self, x):
-        return self.activation(self.batchnorm(self.conv(x)))
+        return self.activation(self.batchnorm(self._conv(x)))
+
+
+class DtypeLinear(nn.Linear):
+    """nn.Linear computing in ``dtype`` (inputs, weight and bias cast; the
+    bias added after the product) with an f32 result, as flax's
+    ``nn.Dense(dtype=...)`` followed by ``astype(f32)``."""
+
+    def __init__(self, in_features, out_features, dtype=torch.float32):
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+
+    def forward(self, x):
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        dt = self.dtype
+        y = nn.functional.linear(x.to(dt), self.weight.to(dt))
+        return (y + self.bias.to(dt)).float()
 
 
 def conv_out_shape(conv_spec, tilesize):
@@ -120,8 +156,10 @@ class YOLOAxTrack(nn.Module):
     f32[N, Sx, Sy, 3] (dim 1 is the x grid cell, model.py:123)."""
 
     def __init__(self, architecture, activation=('leaky_relu', 0.1),
-                 tilesize=512, Sy=12, Sx=12, in_channels=5, seed=0):
+                 tilesize=512, Sy=12, Sx=12, in_channels=5, seed=0,
+                 dtype=torch.float32, fc_dtype=None):
         super().__init__()
+        self.dtype, self.fc_dtype = dtype, fc_dtype
         if isinstance(architecture, str):
             raise NotImplementedError(
                 'backbone architectures belong to a later slice of the port '
@@ -136,14 +174,15 @@ class YOLOAxTrack(nn.Module):
             else:
                 k, out_c, stride, groups = layer
                 self.ConvNet.add_module(f'ConvBlock_{i}', CNNBlock(
-                    c, out_c, k, stride, groups, activation))
+                    c, out_c, k, stride, groups, activation, dtype))
                 c = out_c
         C, H, W = conv_out_shape(conv_spec, tilesize)
         self.fcs = nn.Sequential(nn.Flatten())
         d = C * H * W
+        head_dtype = dtype if fc_dtype is None else fc_dtype
         for j, (element_type, param) in enumerate(fc_spec):
             if element_type == 'FC':
-                self.fcs.append(nn.Linear(d, param))
+                self.fcs.append(DtypeLinear(d, param, head_dtype))
                 d = param
             elif element_type == 'dropout':
                 self.fcs.append(SeededDropout(param, seed=seed + j))
@@ -165,13 +204,16 @@ def initial_in_channels(params):
     return per_frame * (params['TEMPORAL_CONTEXT'] * 2 + 1)
 
 
-def build_model(params):
+def build_model(params, dtype=torch.float32, fc_dtype=None):
+    """The detector of ``params``; ``dtype``/``fc_dtype`` as the JAX
+    package's ``build_model`` (fc_dtype None follows dtype)."""
     return YOLOAxTrack(params['ARCHITECTURE'],
                        activation=params['ACTIVATION_FUNCTION'],
                        tilesize=params['TILESIZE'], Sy=params['SY'],
                        Sx=params['SX'],
                        in_channels=initial_in_channels(params),
-                       seed=params.get('SEED', 0))
+                       seed=params.get('SEED', 0), dtype=dtype,
+                       fc_dtype=fc_dtype)
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
 """The port on the GPU: kernel K1 against its plain version, and the
-training path's device code against the CPU.
+training path's device code, the auction tracker and the mixed-precision
+detector against the CPU.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a) and are marked ``cuda``;
 on a machine without one they skip. Run them on the card with
@@ -163,3 +164,75 @@ def test_train_step_gpu_equals_cpu(dev):
             losses[str(d)] = [float(PE.train_step(state, X.to(d), tgt.to(d))
                                     ['total_summed_loss']) for _ in range(3)]
     np.testing.assert_allclose(losses[str(dev)], losses['cpu'], rtol=1e-4)
+
+
+def test_auction_and_online_tracker_gpu_equal_cpu(dev):
+    """The auction (chunked convergence checks on the card) and the online
+    tracker give the CPU's assignments and trajectories."""
+    from axtrack_tpu_torch.track import lap_device as L
+    rng = np.random.default_rng(4)
+    cost = rng.random((16, 24)).astype(np.float32)
+    cost[rng.random((16, 24)) < 0.3] = L.BIG
+    rv = torch.from_numpy(rng.random(16) < 0.9)
+    cv = torch.ones(24, dtype=torch.bool)
+    for scale in (True, False):
+        a = L.auction_lap(torch.from_numpy(cost), rv, cv, scale=scale)
+        b = L.auction_lap(torch.from_numpy(cost).to(dev), rv.to(dev),
+                          cv.to(dev), scale=scale)
+        assert torch.equal(a, b.cpu())
+    P = dict(MCF_EDGE_COST_THR=0.7, MCF_ENTRY_EXIT_COST=2, MCF_MISS_RATE=0.6,
+             MCF_MAX_NUM_MISSES=1, MCF_MAX_CONF_COST=4.6,
+             MCF_CONF_CAPPING_METHOD='scale_to_max')
+    counts = rng.integers(0, 7, 10)
+    frames = [{'conf': (0.6 + 0.4 * rng.random(n)).astype(np.float32),
+               'x': rng.integers(0, 400, n).astype(np.int32),
+               'y': rng.integers(0, 400, n).astype(np.int32)}
+              for n in counts]
+    dists = {}
+    for t in range(1, 10):
+        for g in (1, 2):
+            if t - g >= 0:
+                D = rng.integers(5, 1000, (counts[t - g], counts[t]))
+                dists[(t, g)] = np.where(D > 400, 500, D).astype(np.float32)
+    want = L.OnlineTracker(P, 'cpu').track(frames, dists)
+    assert L.OnlineTracker(P, dev).track(frames, dists) == want
+    assert L.OnlineTracker(P, dev).track_host(frames, dists) == want
+
+
+def test_mixed_precision_detection_runs_on_the_card(dev):
+    """'mixed' (bf16 convolutions, f32 head) on cuda: f32 grids, within
+    chip_smoke's bound of the CPU's 'mixed' and of cuda's f32 and unequal
+    to the latter; its conv features nearer the CPU's 'mixed' than a
+    quarter of their distance from cuda's f32 (a mode computing in f32
+    would be as far from the CPU's 'mixed' as f32 is)."""
+    import os
+    import sys
+    from axtrack_tpu_torch.interface import PRECISIONS
+    from axtrack_tpu_torch.models.yolo import build_model, init_weights
+    from axtrack_tpu_torch.params import load_parameters
+    from axtrack_tpu_torch.train.engine import exact_f32
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    from chip_smoke import PRECISION_GRID_ATOL
+    P = load_parameters(None, None,
+                        from_directory=os.path.join(repo, 'deployed_model'))
+    X = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 5, 512, 512)).astype(np.float32))
+    grids, feats = {}, {}
+    for mode, d in (('mixed', 'cpu'), ('mixed', dev), ('f32', dev)):
+        m = init_weights(build_model(P, *PRECISIONS[mode]),
+                         torch.Generator().manual_seed(0)).eval().to(d)
+        with torch.no_grad(), exact_f32():
+            g = m(X.to(d))
+            feats[(mode, str(d))] = m.ConvNet(X.to(d)).cpu()
+        assert g.dtype == torch.float32 and g.shape == (2, 12, 12, 3)
+        grids[(mode, str(d))] = g.cpu()
+    gpu = grids[('mixed', 'cuda')]
+    assert torch.isfinite(gpu).all()
+    assert (gpu - grids[('mixed', 'cpu')]).abs().max() <= \
+        PRECISION_GRID_ATOL['mixed']
+    assert 0 < (gpu - grids[('f32', 'cuda')]).abs().max() <= \
+        PRECISION_GRID_ATOL['mixed']
+    f = feats[('mixed', 'cuda')]
+    assert ((f - feats[('mixed', 'cpu')]).abs().mean()
+            < (f - feats[('f32', 'cuda')]).abs().mean() / 4)

@@ -239,10 +239,10 @@ def test_cache_roundtrip_and_missing_weights(tmp_path):
     with pytest.raises(ValueError, match='init_seed'):
         PI.setup_inference(str(tmp_path / 'p'), device='cpu',
                            deployed_dir=bundle)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='precision'):
         PI.setup_inference(str(tmp_path / 'p'), device='cpu',
                            deployed_dir=bundle, init_seed=0,
-                           precision='mixed')
+                           precision='fp8')
     params, model, scaler = PI.setup_inference(
         str(tmp_path / 'p'), device='cpu', deployed_dir=bundle, init_seed=0)
     dest = str(tmp_path / 'p')
