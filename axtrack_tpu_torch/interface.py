@@ -26,6 +26,7 @@ import os
 import pickle
 import shutil
 
+import numpy as np
 import torch
 
 from . import config
@@ -116,7 +117,11 @@ def prepare_input_data(imseq_fname, parameters, dest_dir, inference_data_dir,
                        stnd_scaler, mask_fname=None, use_cached_datasets='to',
                        check_preproc=False, input_metadata={}):
     """Generate the Timelapse input object (reference interface.py:79-168)
-    on ``parameters['DEVICE']``."""
+    on ``parameters['DEVICE']``. ``imseq_fname`` names a TIFF in
+    ``inference_data_dir``, or is the movie itself as an in-memory [T, H,
+    W] array (uint16 raw or float32 in [0, 1]). A movie beyond the device
+    budget is staged (uint16) or kept on the host (``data/timelapse.py``);
+    ``inference`` runs it in frame chunks."""
     if check_preproc:
         raise NotImplementedError(
             'check_preproc plots the input distribution; plotting is a later '
@@ -125,7 +130,8 @@ def prepare_input_data(imseq_fname, parameters, dest_dir, inference_data_dir,
     if pad:
         pad = [pad] * 4
     return Timelapse(
-        imseq_path=f'{inference_data_dir}/{imseq_fname}',
+        imseq_path=(imseq_fname if isinstance(imseq_fname, np.ndarray)
+                    else f'{inference_data_dir}/{imseq_fname}'),
         mask_path=(f'{inference_data_dir}/{mask_fname}'
                    if mask_fname else None),
         labels_csv=None,

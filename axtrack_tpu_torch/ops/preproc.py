@@ -5,7 +5,10 @@ offset -> clip -> log-adjust -> standardize, elementwise on whatever device
 the frames live on. Statistics follow the reference: per-frame mean/std
 over the *nonzero* pixels only (Timelapse.py:290-291).
 
-The staged-u16 path of the JAX package is not ported (ROADMAP M13b).
+``staged_preprocess_u16`` is the same chain on raw uint16 frames, for
+movies kept as integers on the host (``data/timelapse.py``'s staged mode):
+with the same ops in the same order as the whole-movie path, a staged
+movie's frames are bit-equal to the whole movie's on one device.
 """
 import torch
 import torch.nn.functional as F
@@ -42,6 +45,33 @@ def preprocess_frames(imseq, mask, offset, clip_lowerlim, var_scalar,
     return x / var_scalar
 
 
+def u16_to_float(raw):
+    """img_as_float32 of raw uint16 frames on their device: the integers
+    (uint16, or their bits as int16) as f32, divided by 65535 and rounded
+    once, as numpy divides. The divisor is a tensor on the frames' device:
+    with a Python number PyTorch's CUDA kernel multiplies by its
+    reciprocal, which rounds some quotients the other way, and a movie
+    converted on the host would then differ from one converted on the
+    card."""
+    if raw.dtype == torch.uint16:
+        raw = raw.view(torch.int16)
+    x = (raw.to(torch.int32) & 0xffff).to(torch.float32)
+    return x / torch.tensor(65535.0, device=x.device)
+
+
+def staged_preprocess_u16(raw, offset, clip_lowerlim, var_scalar,
+                          log_correct=True):
+    """``preprocess_frames`` for raw uint16 frames (``axtrack_tpu``'s
+    ``staged_preprocess_u16``): u / 65535, then max(x - offset, 0), the
+    clip, log2(1 + x) and the division by ``var_scalar``. Mask and padding
+    were applied to the integers. Returns f32[T, H, W]."""
+    x = torch.clamp_min(u16_to_float(raw) - offset, 0.0)
+    x = torch.where(x < clip_lowerlim, 0.0, x)
+    if log_correct:
+        x = adjust_log(x)
+    return x / var_scalar
+
+
 def nonzero_stats(frames):
     """Per-frame (mean, std, max) over nonzero pixels; std is the population
     std (ddof=0). Returns three f32[T] tensors."""
@@ -58,7 +88,12 @@ def nonzero_stats(frames):
 def compute_stnd_scaler(frames, standardize='zscore'):
     """Movie-global standardization scalars from per-frame nonzero stats
     (Timelapse.py:296-300). Returns (var_scalar, mean_scalar) floats."""
-    mean, std, mx = nonzero_stats(frames)
+    return stnd_scaler_from_stats(*nonzero_stats(frames), standardize)
+
+
+def stnd_scaler_from_stats(mean, std, mx, standardize='zscore'):
+    """``compute_stnd_scaler`` from the per-frame (mean, std, max) of every
+    frame, e.g. concatenated over chunks of frames."""
     if standardize == 'zscore':
         return float(std.mean()), float(mean.mean())
     if standardize == '0to1':

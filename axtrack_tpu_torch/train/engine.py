@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``axtrack_tpu/train/engine.py`` (reference
 machinelearning/core_functionality.py:15-166): setup_data, setup_model,
-the train and eval steps, the device-resident epoch, prepare_data and
-one_epoch.
+the train and eval steps, the epoch (device-resident, or streamed from
+host tiles for a movie beyond the device budget; a staged movie's epoch
+is ``train/bigmovie.py``'s), prepare_data and one_epoch.
 
 Optimizer parity: ``torch.optim.Adam(weight_decay=wd)`` adds wd * p to the
 gradient before the moments (L2, not AdamW), which is what the JAX
@@ -68,7 +69,8 @@ class TrainState:
 
     ``step_events``: when a list, each train/eval step appends a (start,
     end) pair of CUDA events around it, so a caller can time steps without
-    a host sync inside the epoch."""
+    a host sync inside the epoch. ``copy_seconds``: the device time of the
+    last chunk-resident epoch's host->device copies (``bigmovie``)."""
 
     def __init__(self, model, optimizer, P):
         self.model = model
@@ -77,6 +79,7 @@ class TrainState:
         self.epoch = 0
         self.rng = np.random.default_rng(P['SEED'])
         self.step_events = None
+        self.copy_seconds = 0.0
 
     @property
     def device(self):
@@ -148,16 +151,18 @@ def exact_f32():
 
 
 def _gather(dataset, tp_idx, idx):
-    """Batch of flat (timepoint, tile) indices, gathered on the device:
+    """Batch of flat (timepoint, tile) indices (on ``X_tiled``'s device),
+    gathered where ``X_tiled`` lives and brought to the dataset's device:
     (X f32[B, C, ts, ts] NCHW, frame-major channels; target)."""
-    K = dataset.X_tiled.shape[1]
+    K = dataset.ntiles_kept
     tc = dataset.temporal_context
     t_all = tp_idx[idx // K]
     tile = idx % K
     ctx = t_all[:, None] + torch.arange(-tc, tc + 1, device=idx.device)
-    X = dataset.X_tiled[ctx, tile[:, None]]
+    X = dataset.X_tiled[ctx, tile[:, None]].to(dataset.device)
     X = X.reshape(X.shape[0], -1, *X.shape[-2:])
-    return X, dataset.target_tiled[t_all, tile]
+    dev = dataset.device
+    return X, dataset.target_tiled[t_all.to(dev), tile.to(dev)]
 
 
 def gather_batch(dataset, indices):
@@ -170,27 +175,46 @@ def gather_batch(dataset, indices):
 
 
 def run_epoch(state, dataset, which_dataset, P, indices):
-    """The device-resident epoch: the batch plan crosses to the device
-    once, every batch (gather + step) is queued without a host sync, full
-    batches first and then the remainder unless DROP_LAST, and the loss
-    components come back in one copy at the end.
+    """An epoch over ``indices`` (flat (timepoint, tile) pairs) in batches
+    of BATCH_SIZE, full batches first and then the remainder unless
+    DROP_LAST (``run_batches``)."""
+    bs = P['BATCH_SIZE']
+    indices = np.asarray(indices)
+    n_full = len(indices) // bs
+    batches = [indices[b0:b0 + bs] for b0 in range(0, n_full * bs, bs)]
+    if len(indices) > n_full * bs and not P['DROP_LAST']:
+        batches.append(indices[n_full * bs:])
+    return run_batches(state, dataset, which_dataset, batches)
+
+
+def run_batches(state, dataset, which_dataset, batches):
+    """The train or eval step over a list of batches of flat indices. With
+    ``X_tiled`` on the device (a movie within the budget) the plan crosses
+    to the device once and each batch is gathered there; with ``X_tiled``
+    on the host (a movie beyond it, not staged) each batch is gathered on
+    the host and copied over: the streaming epoch."""
+    dev = dataset.X_tiled.device
+    tp_idx = torch.as_tensor(dataset.timepoints_indices, device=dev)
+    plan = torch.as_tensor(np.concatenate(batches) if batches else
+                           np.zeros(0, np.int64), device=dev).long()
+    bounds = np.cumsum([0] + [len(b) for b in batches])
+    return run_steps(state, which_dataset, (
+        _gather(dataset, tp_idx, plan[b0:b1])
+        for b0, b1 in zip(bounds[:-1], bounds[1:])))
+
+
+def run_steps(state, which_dataset, batches):
+    """The train or eval step over (X, target) batches on the device, each
+    queued without a host sync; the loss components come back in one copy
+    at the end.
 
     Returns the per-batch components: dict name -> f32[n_batches], names
     sorted as the JAX package's epoch reports them."""
-    dev = dataset.X_tiled.device
-    tp_idx = torch.as_tensor(dataset.timepoints_indices, device=dev)
-    idx = torch.as_tensor(np.asarray(indices), device=dev).long()
-    bs = P['BATCH_SIZE']
-    n_full = len(idx) // bs
-    starts = list(range(0, n_full * bs, bs))
-    if len(idx) > n_full * bs and not P['DROP_LAST']:
-        starts.append(n_full * bs)
     step = train_step if which_dataset == 'train' else eval_step
     events = state.step_events
     comps = []
     with exact_f32():
-        for b0 in starts:
-            X, target = _gather(dataset, tp_idx, idx[b0:b0 + bs])
+        for X, target in batches:
             if events is not None:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
@@ -205,8 +229,8 @@ def run_epoch(state, dataset, which_dataset, P, indices):
     keys = sorted(c)
     table = torch.stack(comps).cpu().numpy()
     out = {k: table[:, i] for i, k in enumerate(keys)}
-    print(f'LOSS: {out["total_summed_loss"][-1]:.3f} ({len(starts)} '
-          'device-resident batches) Done.')
+    print(f'LOSS: {out["total_summed_loss"][-1]:.3f} ({len(comps)} '
+          'batches) Done.')
     return out
 
 
@@ -240,10 +264,15 @@ def one_epoch(dataset, state, params, epoch, train=True, min_pos_rate=.65,
         print('Bad data augmentation -- Doing it again --')
         redraws += 1
 
-    indices = np.arange(len(dataset))
-    if params['SHUFFLE']:
-        state.rng.shuffle(indices)
-    batches = run_epoch(state, dataset, which_dataset, params, indices)
+    if getattr(dataset, '_chunk_epoch', None) is not None:
+        # a staged movie trains chunk-resident (train/bigmovie.py)
+        from .bigmovie import run_epoch_chunked
+        batches = run_epoch_chunked(state, dataset, which_dataset, params)
+    else:
+        indices = np.arange(len(dataset))
+        if params['SHUFFLE']:
+            state.rng.shuffle(indices)
+        batches = run_epoch(state, dataset, which_dataset, params, indices)
     info = {k: float(np.mean(v, dtype=np.float64))
             for k, v in batches.items()}
 

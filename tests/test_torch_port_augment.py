@@ -178,9 +178,23 @@ def test_motion_channels_equal_jax(tmp_path, motion):
 
 
 def test_movie_beyond_the_device_budget_raises(tmp_path, monkeypatch):
-    """The staged-u16 and chunked paths are not ported: a movie beyond the
-    whole-movie budget raises, naming the queue item."""
+    """A movie beyond the whole-movie budget no longer raises: a u16 movie
+    is staged and a motion-mode one stays on the host in f32, and both
+    draw the JAX package's (whole-movie) transforms, kept tiles, targets
+    and tile stacks (motion channels at this file's motion tolerance)."""
     from axtrack_tpu_torch.data import timelapse as PT
     monkeypatch.setattr(PT, 'device_budget', lambda device: 1000)
-    with pytest.raises(NotImplementedError, match='M13b'):
-        _pair(tmp_path, [])
+    for motion, rtol in (('exclude', 1e-6), ('include', 1e-5)):
+        j, p = _pair(tmp_path / motion, ['vflip', 'translateY'], motion)
+        assert p._on_host and p._u16_staged == (motion == 'exclude')
+        for _ in range(2):
+            j.construct_tiles()
+            p.construct_tiles()
+            assert p.last_transform_configs == j.last_transform_configs
+            np.testing.assert_array_equal(p._tile_flat_idx, j._tile_flat_idx)
+            np.testing.assert_array_equal(p.target_tiled.numpy(),
+                                          np.asarray(j.target_tiled))
+            X, _ = p.get_frametiles_stack(1)
+            jX, _ = j.get_frametiles_stack(1)
+            np.testing.assert_allclose(X.numpy(), np.asarray(jX), rtol=rtol,
+                                       atol=1e-6)

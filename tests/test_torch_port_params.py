@@ -67,6 +67,35 @@ def test_import_isolation():
     assert 'isolated' in out.stdout
 
 
+def test_smoke_script_ends_the_processes_it_starts(tmp_path):
+    """A spawned worker pool leaves the multiprocessing resource tracker
+    running after it closes; chip_smoke's stop_children must end it (and
+    any other child) and wait for it."""
+    script = tmp_path / 'pool.py'
+    script.write_text(
+        "import multiprocessing as mp\n"
+        "import sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import chip_smoke\n"
+        "def sq(x):\n"
+        "    return x * x\n"
+        "def search():\n"
+        "    with mp.get_context('spawn').Pool(2) as pool:\n"
+        "        return pool.map(sq, range(4))\n"
+        "if __name__ == '__main__':\n"
+        "    assert search() == [0, 1, 4, 9]\n"
+        "    before = chip_smoke.child_pids()\n"
+        "    ended = chip_smoke.stop_children()\n"
+        "    print(len(before), ended, chip_smoke.child_pids())\n")
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_before, rest = out.stdout.split(' ', 1)
+    assert int(n_before) == 1, out.stdout           # the tracker alone
+    assert 'resource tracker' in rest and rest.strip().endswith('[]'), rest
+    assert 'Error' not in out.stderr, out.stderr
+
+
 def test_no_jax_in_sources():
     pkg = os.path.join(REPO, 'axtrack_tpu_torch')
     files = [os.path.join(REPO, 'chip_smoke.py')]
