@@ -3,9 +3,11 @@
 PyTorch counterpart of ``axtrack_tpu/models/yolo.py`` with the reference's
 own layout (machinelearning/model.py:5-125): NCHW activations, a conv stack
 built from the ARCHITECTURE spec under ``ConvNet.ConvBlock_{i}`` (conv with
-padding 1, BatchNorm eps 1e-5, activation; 'M' is a 2x2 max-pool), then
-``fcs``: Flatten (NCHW order) -> Linear/activation per the FC spec -> the
-Sy*Sx*3 head, reshaped to the grid [N, Sx, Sy, 3].
+padding 1, BatchNorm eps 1e-5, activation; 'M' is a 2x2 max-pool) or, for
+an ARCHITECTURE string, a backbone stack as ``ConvNet``
+(``models/backbones.py``), then ``fcs``: Flatten (NCHW order) ->
+Linear/activation per the FC spec -> the Sy*Sx*3 head, reshaped to the
+grid [N, Sx, Sy, 3].
 
 In train mode the BatchNorm layers update their running statistics as
 flax does (momentum 0.9, the biased batch variance; ``FlaxBatchNorm2d``)
@@ -52,16 +54,19 @@ def make_activation(spec):
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d whose train-mode update of the running statistics is
-    flax's (``axtrack_tpu/models/yolo.py:67-68``): running = 0.9 * running
-    + 0.1 * batch statistic, with the *biased* batch variance (torch's own
-    update uses the unbiased one). Normalisation is unchanged: batch
-    statistics in train mode, running ones in eval mode."""
+    """BatchNorm2d in f32 (its input is cast) whose train-mode update of
+    the running statistics is flax's (``axtrack_tpu/models/yolo.py:67-68``):
+    running = (1 - momentum) * running + momentum * batch statistic, with
+    the *biased* batch variance (torch's own update uses the unbiased one).
+    ``momentum`` is torch's: flax's is 1 minus it. Normalisation is
+    unchanged: batch statistics in train mode, running ones in eval
+    mode."""
 
-    def __init__(self, num_features):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features, eps=1e-5, momentum=0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x):
+        x = x.float()
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
@@ -92,30 +97,42 @@ class SeededDropout(nn.Module):
         return torch.where(keep >= self.p, x / (1.0 - self.p), 0.0)
 
 
+class DtypeConv2d(nn.Conv2d):
+    """nn.Conv2d computing in ``dtype`` as flax's ``nn.Conv(dtype=...)``:
+    input and weight cast, the bias added in ``dtype`` after the
+    convolution. The result stays in ``dtype``."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x):
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        dt = self.dtype
+        y = nn.functional.conv2d(x.to(dt), self.weight.to(dt), None,
+                                 self.stride, self.padding, self.dilation,
+                                 self.groups)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
 class CNNBlock(nn.Module):
     """Conv2d + BatchNorm + activation (reference model.py:5-18). The conv
-    computes in ``dtype`` (its bias added in ``dtype`` after the
-    convolution, as flax does); BatchNorm and the activation in f32."""
+    computes in ``dtype`` (``DtypeConv2d``); BatchNorm and the activation
+    in f32."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride, groups,
                  activation, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
-                              padding=1, groups=groups, bias=True)
+        self.conv = DtypeConv2d(in_channels, out_channels, kernel_size,
+                                stride, padding=1, groups=groups, bias=True,
+                                dtype=dtype)
         self.batchnorm = FlaxBatchNorm2d(out_channels)
         self.activation = make_activation(activation)
 
-    def _conv(self, x):
-        if self.dtype == torch.float32:
-            return self.conv(x)
-        c, dt = self.conv, self.dtype
-        y = nn.functional.conv2d(x.to(dt), c.weight.to(dt), None, c.stride,
-                                 c.padding, c.dilation, c.groups)
-        return (y + c.bias.to(dt)[:, None, None]).float()
-
     def forward(self, x):
-        return self.activation(self.batchnorm(self._conv(x)))
+        return self.activation(self.batchnorm(self.conv(x)))
 
 
 class DtypeLinear(nn.Linear):
@@ -135,47 +152,78 @@ class DtypeLinear(nn.Linear):
         return (y + self.bias.to(dt)).float()
 
 
-def conv_out_shape(conv_spec, tilesize):
-    """(C, H, W) of the conv stack output (padding 1 throughout)."""
+# the FC head of a backbone architecture (axtrack_tpu/models/yolo.py:102-107)
+BACKBONE_HEAD = [('FC', 1024), ('activation', 'sigmoid'), ('FC', 1024),
+                 ('activation', 'sigmoid')]
+
+
+def split_architecture(architecture):
+    """(conv spec or backbone name, FC spec) of an ARCHITECTURE value."""
+    if isinstance(architecture, str):
+        return architecture, BACKBONE_HEAD
+    return architecture[0], architecture[1]
+
+
+def conv_shapes(conv_spec, tilesize):
+    """(C, H, W) of each layer's output in the conv stack: a conv spec
+    (padding 1 throughout; 'M' a 2x2 max-pool) or a backbone name."""
+    if isinstance(conv_spec, str):
+        from .backbones import BACKBONES
+        return [(c, h, h) for c, h in BACKBONES[conv_spec].shapes(tilesize)]
     h = w = tilesize
     c = None
+    out = []
     for layer in conv_spec:
         if layer == 'M':
             h //= 2
             w //= 2
         else:
-            k, out_c, stride, _ = layer
+            k, c, stride, _ = layer
             h = (h + 2 - k) // stride + 1
             w = (w + 2 - k) // stride + 1
-            c = out_c
-    return c, h, w
+        out.append((c, h, w))
+    return out
+
+
+def conv_out_shape(conv_spec, tilesize):
+    """(C, H, W) of the conv stack output (``conv_shapes``' last)."""
+    return conv_shapes(conv_spec, tilesize)[-1]
 
 
 class YOLOAxTrack(nn.Module):
     """The growth-cone detector. Input f32[N, C, ts, ts]; output the grid
-    f32[N, Sx, Sy, 3] (dim 1 is the x grid cell, model.py:123)."""
+    f32[N, Sx, Sy, 3] (dim 1 is the x grid cell, model.py:123).
+
+    ``architecture`` is a [conv spec, FC spec] pair or a backbone name
+    ('mobilenet', 'alexnet', 'resnet'; ``models/backbones.py``), which
+    takes the ``BACKBONE_HEAD``. ``ConvNet`` gives the features either
+    way."""
 
     def __init__(self, architecture, activation=('leaky_relu', 0.1),
                  tilesize=512, Sy=12, Sx=12, in_channels=5, seed=0,
                  dtype=torch.float32, fc_dtype=None):
         super().__init__()
         self.dtype, self.fc_dtype = dtype, fc_dtype
-        if isinstance(architecture, str):
-            raise NotImplementedError(
-                'backbone architectures belong to a later slice of the port '
-                '(ROADMAP M16)')
-        conv_spec, fc_spec = architecture
+        conv_spec, fc_spec = split_architecture(architecture)
         self.Sy, self.Sx, self.tilesize = Sy, Sx, tilesize
-        self.ConvNet = nn.Sequential()
-        c = in_channels
-        for i, layer in enumerate(conv_spec):
-            if layer == 'M':
-                self.ConvNet.add_module(f'ConvBlock_{i}', nn.MaxPool2d(2, 2))
-            else:
-                k, out_c, stride, groups = layer
-                self.ConvNet.add_module(f'ConvBlock_{i}', CNNBlock(
-                    c, out_c, k, stride, groups, activation, dtype))
-                c = out_c
+        self.in_channels, self.conv_spec = in_channels, conv_spec
+        if isinstance(conv_spec, str):
+            from .backbones import BACKBONES
+            if conv_spec not in BACKBONES:
+                raise ValueError(f'unknown backbone {conv_spec!r}')
+            self.ConvNet = BACKBONES[conv_spec](in_channels, dtype)
+        else:
+            self.ConvNet = nn.Sequential()
+            c = in_channels
+            for i, layer in enumerate(conv_spec):
+                if layer == 'M':
+                    self.ConvNet.add_module(f'ConvBlock_{i}',
+                                            nn.MaxPool2d(2, 2))
+                else:
+                    k, out_c, stride, groups = layer
+                    self.ConvNet.add_module(f'ConvBlock_{i}', CNNBlock(
+                        c, out_c, k, stride, groups, activation, dtype))
+                    c = out_c
         C, H, W = conv_out_shape(conv_spec, tilesize)
         self.fcs = nn.Sequential(nn.Flatten())
         d = C * H * W
@@ -193,8 +241,16 @@ class YOLOAxTrack(nn.Module):
         self.fcs.append(nn.Linear(d, Sy * Sx * 3))
 
     def forward(self, x):
-        pred = self.fcs(self.ConvNet(x))
+        pred = self.fcs(self.ConvNet(x).float())
         return pred.reshape(pred.shape[0], self.Sx, self.Sy, 3)
+
+    def tile_floats(self):
+        """About the most elements one tile's ``ConvNet`` forward holds at
+        once: its input and three copies of the largest layer output (a
+        layer's input and output, and a cast or normalised copy)."""
+        largest = max(c * h * w for c, h, w in
+                      conv_shapes(self.conv_spec, self.tilesize))
+        return self.in_channels * self.tilesize ** 2 + 3 * largest
 
 
 def initial_in_channels(params):
@@ -227,6 +283,8 @@ def init_weights(model, generator):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             for p in (m.weight, m.bias):
+                if p is None:               # a conv followed by BatchNorm
+                    continue
                 p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
                                                       generator=generator))
         elif isinstance(m, nn.BatchNorm2d):
@@ -242,14 +300,39 @@ def _nchw_to_nhwc_flat_perm(C, H, W):
     return (cc * H * W + hh * W + ww).reshape(-1)
 
 
-def weights_from_jax(variables_np, params):
-    """State dict for ``build_model(params)`` from ``axtrack_tpu``'s flax
-    variables given as a tree of numpy arrays
-    ({'params': {'CNNBlock_k': ..., 'Dense_m': ...}, 'batch_stats': ...}).
-    """
-    prm = variables_np['params']
-    stats = variables_np.get('batch_stats', {})
-    conv_spec, fc_spec = params['ARCHITECTURE']
+def _backbone_from_jax(prm, stats, which, in_channels):
+    """State dict (keys relative to ``ConvNet``) of the backbone ``which``
+    from the flax 'backbone' subtrees ``prm`` and ``stats``."""
+    from .backbones import BACKBONES, flax_path
+    f32 = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+
+    def at(tree, path):
+        for key in path:
+            tree = tree[key]
+        return tree
+    with torch.device('meta'):
+        stack = BACKBONES[which](in_channels)
+    sd = {}
+    for name, m in stack.named_modules():
+        if isinstance(m, nn.Conv2d):
+            p = at(prm, flax_path(stack, name))
+            sd[f'{name}.weight'] = f32(np.transpose(p['kernel'],
+                                                    (3, 2, 0, 1)))
+            if m.bias is not None:
+                sd[f'{name}.bias'] = f32(p['bias'])
+        elif isinstance(m, nn.BatchNorm2d):
+            p, s = (at(t, flax_path(stack, name)) for t in (prm, stats))
+            sd[f'{name}.weight'] = f32(p['scale'])
+            sd[f'{name}.bias'] = f32(p['bias'])
+            sd[f'{name}.running_mean'] = f32(s['mean'])
+            sd[f'{name}.running_var'] = f32(s['var'])
+            sd[f'{name}.num_batches_tracked'] = torch.tensor(0)
+    return sd
+
+
+def _conv_spec_from_jax(prm, stats, conv_spec):
+    """State dict of a conv-spec ``ConvNet`` from the flax 'CNNBlock_k'
+    subtrees."""
     f32 = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
     sd = {}
     k = 0
@@ -267,6 +350,26 @@ def weights_from_jax(variables_np, params):
         sd[f'{pre}.batchnorm.running_var'] = f32(bs['var'])
         sd[f'{pre}.batchnorm.num_batches_tracked'] = torch.tensor(0)
         k += 1
+    return sd
+
+
+def weights_from_jax(variables_np, params):
+    """State dict for ``build_model(params)`` from ``axtrack_tpu``'s flax
+    variables given as a tree of numpy arrays
+    ({'params': {'CNNBlock_k' or 'backbone': ..., 'Dense_m': ...},
+    'batch_stats': ...}).
+    """
+    prm = variables_np['params']
+    stats = variables_np.get('batch_stats', {})
+    conv_spec, fc_spec = split_architecture(params['ARCHITECTURE'])
+    f32 = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    if isinstance(conv_spec, str):
+        backbone = _backbone_from_jax(prm['backbone'],
+                                      stats.get('backbone', {}), conv_spec,
+                                      initial_in_channels(params))
+        sd = {f'ConvNet.{k}': v for k, v in backbone.items()}
+    else:
+        sd = _conv_spec_from_jax(prm, stats, conv_spec)
     # fcs indices of the Linears: Flatten is 0, then one module per fc_spec
     # element, the head appended last (model.py:105-117)
     linears = [1 + j for j, (et, _) in enumerate(fc_spec) if et == 'FC']

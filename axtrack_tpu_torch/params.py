@@ -109,8 +109,12 @@ def get_default_parameters():
 
 
 def architecture_to_text(arch):
-    text = ''
+    """The ARCHITECTURE lines of ``params2text``. A backbone name prints as
+    the name (the JAX package prints a string letter by letter)."""
     empty = ''
+    if isinstance(arch, str):
+        return f'{empty:8} {arch}\n'
+    text = ''
     for i, arch_group in enumerate(arch):
         if i == 1:
             text += f'{empty:28}== FullyConnected Head ==\n'

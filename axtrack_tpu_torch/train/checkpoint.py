@@ -3,7 +3,9 @@
 PyTorch counterpart of ``axtrack_tpu/train/checkpoint.py`` (reference
 utils.py:258-288): one ``E%04d.pt`` file per saved epoch holding the model
 ``state_dict`` (parameters and BatchNorm statistics), the Adam state and
-the epoch. ``state_from_jax`` carries a JAX training checkpoint across.
+the epoch. The reference's own ``E*.pth`` files load too, their weights
+only (``models/torch_convert.py``). ``state_from_jax`` carries a JAX
+training checkpoint across.
 """
 import glob
 import os
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..models.torch_convert import load_torch_checkpoint
 from ..models.yolo import build_model, weights_from_jax
 
 
@@ -35,17 +38,19 @@ def save_checkpoint(state, filename, include_opt=True):
 
 
 def checkpoint_file(load_model):
-    """The checkpoint file ``load_model`` names: a ``.pt`` path, a
-    directory (the first ``E*.pt`` in it, as the reference takes the first
-    of a sorted glob), or [exp_name, run, epoch|'latest'] under
-    OUTPUT_DIR/runs."""
+    """The checkpoint file ``load_model`` names: a ``.pt`` or ``.pth``
+    path, a directory (the first ``E*.pt`` in it, as the reference takes
+    the first of a sorted glob, else the first ``E*.pth``), or [exp_name,
+    run, epoch|'latest'] under OUTPUT_DIR/runs."""
     if isinstance(load_model, (str, os.PathLike)):
         load_model = str(load_model)
-        if load_model.endswith('.pt'):
+        if load_model.endswith(('.pt', '.pth')):
             return load_model
-        cands = sorted(glob.glob(f'{load_model}/E*.pt'))
+        cands = (sorted(glob.glob(f'{load_model}/E*.pt'))
+                 or sorted(glob.glob(f'{load_model}/E*.pth')))
         if not cands:
-            raise FileNotFoundError(f'no E*.pt checkpoint in {load_model}')
+            raise FileNotFoundError(
+                f'no E*.pt or E*.pth checkpoint in {load_model}')
         return cands[0]
     exp_name, run, epoch = load_model
     from ..utils.rundirs import get_run_dir
@@ -69,9 +74,13 @@ def restore(ckpt, state):
 
 def load_checkpoint(load_model, state):
     """Restore the checkpoint ``load_model`` names into ``state``
-    (reference utils.py:265-288)."""
+    (reference utils.py:265-288). A reference ``.pth`` file gives the
+    weights only: the Adam state and the epoch stay as they are."""
     file = checkpoint_file(load_model)
     print(f'=> Loading model checkpoint... {file}', flush=True)
+    if file.endswith('.pth'):
+        state.model.load_state_dict(load_torch_checkpoint(file, state.P))
+        return
     restore(torch.load(file, map_location='cpu', weights_only=True), state)
 
 

@@ -1,6 +1,6 @@
 """The port on the GPU: kernel K1 against its plain version, and the
-training path's device code, the auction tracker and the mixed-precision
-detector against the CPU.
+training path's device code, the auction tracker, the mixed-precision
+detector and the backbone detectors against the CPU.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a) and are marked ``cuda``;
 on a machine without one they skip. Run them on the card with
@@ -237,6 +237,31 @@ def test_mixed_precision_detection_runs_on_the_card(dev):
     f = feats[('mixed', 'cuda')]
     assert ((f - feats[('mixed', 'cpu')]).abs().mean()
             < (f - feats[('f32', 'cuda')]).abs().mean() / 4)
+
+
+def test_backbone_grids_gpu_equal_cpu(dev):
+    """The backbone detectors ('resnet', 'mobilenet', 'alexnet') with
+    seeded weights on 2 tiles of 256 px: f32 grids on cuda (TF32 off)
+    within chip_smoke's BACKBONE_GRID_ATOL of the CPU's."""
+    import os
+    import sys
+    from axtrack_tpu_torch.models.yolo import build_model, init_weights
+    from axtrack_tpu_torch.params import get_default_parameters
+    from axtrack_tpu_torch.train.engine import exact_f32
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import BACKBONE_GRID_ATOL
+    X = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 5, 256, 256)).astype(np.float32))
+    for which, atol in BACKBONE_GRID_ATOL.items():
+        P = get_default_parameters()
+        P.update(ARCHITECTURE=which, TILESIZE=256)
+        m = init_weights(build_model(P), torch.Generator().manual_seed(0))
+        with torch.no_grad(), exact_f32():
+            cpu = m.eval()(X)
+            gpu = m.to(dev)(X.to(dev)).cpu()
+        assert gpu.shape == (2, 12, 12, 3) and torch.isfinite(gpu).all()
+        assert (gpu - cpu).abs().max() <= atol, which
 
 
 def test_staged_movie_detection_equals_whole_movie_on_the_card(dev,
