@@ -568,6 +568,24 @@ class Timelapse:
         self._X_u16_dev = self.X.view(torch.int16).to(self.device)
         print('Done.', flush=True)
 
+    def release_device_arrays(self):
+        """Drop this movie's device caches: a staged movie's resident raw
+        u16 (``_X_u16_dev``) and its per-pixel maximum, a tile stack on the
+        device, and the association's window-padded masks and their bits
+        (``_padded_mask_dev``, ``_mask_bits_dev``, a device each). Serving
+        a queue of movies (``interface.inference_many``) would otherwise
+        hold them all. Each is rebuilt on demand: the next
+        ``construct_tiles`` tiles again (and makes a staged movie resident
+        again when it fits), the next association pads the mask again. A
+        movie whose frames live on the device (``X``) keeps them: there is
+        no other copy. Only references are dropped: a thread that still
+        reads one of them (an eager association) holds its own."""
+        self._X_u16_dev = self._u16_pixmax = None
+        self._padded_mask_dev = self._mask_bits_dev = None
+        if not self._on_host:
+            self.X_tiled = None
+        self._tiles_clean = False
+
     def staged_chunk(self, lo, hi):
         """Raw u16 frames [lo:hi) of a staged movie on the device (as int16
         bits): a slice of the resident copy, else a copy from the host."""
@@ -730,6 +748,7 @@ class Timelapse:
         labels in it); a staged movie's non-empty column is its
         untransformed table, as in the JAX package."""
         wants_clean = force_no_transformation or not self.transform_configs
+        self.ensure_resident_u16()
         built = (self.X_tiled is not None
                  or (self._u16_staged and self._tile_flat_idx is not None))
         if wants_clean and built and getattr(self, '_tiles_clean', False):

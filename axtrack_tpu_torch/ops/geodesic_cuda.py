@@ -156,14 +156,31 @@ def _check_windows(mask_bits, row_words, origins, local, window):
     return N, W
 
 
-class ChamferBandsKernel:
-    """ctypes binding of ``axt_chamfer_bands`` (K1's band pass): int32
-    [N, 2] first and last row of each window holding a passable cell, or
-    (W, -1). ``launches`` counts its launches, incremented at the launch
-    and nowhere else."""
+class LaunchCounter:
+    """``launches``: the launches of a kernel wrapper, counted by
+    ``_count`` at the launch and nowhere else. Threads (the shards of a
+    mesh, an eager association) launch at once, so the count takes a lock,
+    and each thread also keeps its own count (``thread_launches``)."""
 
     def __init__(self):
         self.launches = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _count(self):
+        with self._lock:
+            self.launches += 1
+        self._local.launches = self.thread_launches() + 1
+
+    def thread_launches(self):
+        """The launches the calling thread has made."""
+        return getattr(self._local, 'launches', 0)
+
+
+class ChamferBandsKernel(LaunchCounter):
+    """ctypes binding of ``axt_chamfer_bands`` (K1's band pass): int32
+    [N, 2] first and last row of each window holding a passable cell, or
+    (W, -1), with its launch count."""
 
     def __call__(self, mask_bits, row_words, origins, local, window):
         N, W = _check_windows(mask_bits, row_words, origins, local, window)
@@ -180,20 +197,18 @@ class ChamferBandsKernel:
             if err != 0:
                 raise RuntimeError(f'chamfer band kernel launch failed: CUDA '
                                    f'error {err}')
-            self.launches += 1
+            self._count()
         return bands
 
 
-class ChamferKernel:
-    """ctypes binding of ``axt_chamfer`` (K1) with a launch counter.
-
-    ``launches`` counts the kernel launches this object made; it is
-    incremented at the launch and nowhere else. When ``events`` is a list,
+class ChamferKernel(LaunchCounter):
+    """ctypes binding of ``axt_chamfer`` (K1) with a launch counter
+    (``LaunchCounter``). When ``events`` is a list,
     each call appends a (start, end) pair of CUDA events around its band
     pass and its sweeps, so a caller can time K1 inside a larger stage."""
 
     def __init__(self, bands_kernel):
-        self.launches = 0
+        super().__init__()
         self.events = None
         self.bands_kernel = bands_kernel
 
@@ -242,7 +257,7 @@ class ChamferKernel:
             if err != 0:
                 raise RuntimeError(f'chamfer kernel launch failed: CUDA '
                                    f'error {err}')
-            self.launches += 1
+            self._count()
             if self.events is not None:
                 ev[1].record(stream)
                 self.events.append(ev)

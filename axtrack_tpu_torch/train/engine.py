@@ -19,7 +19,6 @@ augmentation draws come from each dataset's own generator.
 
 f32 means f32: convolutions and matmuls run with TF32 off on the card.
 """
-import contextlib
 import math
 
 import numpy as np
@@ -29,6 +28,7 @@ from ..config import resolve_device
 from ..data.timelapse import Timelapse
 from ..models.loss import yolo_loss
 from ..models.yolo import build_model, init_weights
+from ..utils import exact_f32
 
 
 def setup_data(P, skip_test=False):
@@ -134,20 +134,6 @@ def eval_step(state, X, target):
     state.model.eval()
     _, comps = yolo_loss(state.model(X), target, **_loss_kw(state.P))
     return comps
-
-
-@contextlib.contextmanager
-def exact_f32():
-    """TF32 off for cuDNN convolutions and CUDA matmuls inside the block."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def _gather(dataset, tp_idx, idx):

@@ -33,7 +33,7 @@ def run_experiment(exp_name, parameters, save_results=True, mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             'mesh-parallel training is a later slice of the port '
-            '(ROADMAP M14)')
+            '(ROADMAP M14b)')
     set_seed(parameters['SEED'])
     print(f'Running Experiment: {exp_name}', flush=True)
     check_parameters(parameters, get_default_parameters())

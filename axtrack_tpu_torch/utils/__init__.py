@@ -1,8 +1,11 @@
 """Infrastructure helpers (counterpart of ``axtrack_tpu/utils``): seeding,
-the standardization scaler of a bundle, the preprocessing samples of a
-run, run directories and the tri-state stage cache."""
+the TF32 switch of f32 compute, the standardization scaler of a bundle, the
+preprocessing samples of a run, run directories and the tri-state stage
+cache."""
+import contextlib
 import csv
 import pickle
+import threading
 
 import numpy as np
 import torch
@@ -17,6 +20,38 @@ def set_seed(seed):
     explicit ``torch.Generator`` instead of relying on this."""
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+_tf32_lock = threading.Lock()
+_tf32_holders = 0
+_tf32_saved = None
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """TF32 off for cuDNN convolutions and CUDA matmuls inside the block.
+
+    The switches are process-global while the block may be entered by
+    several threads at once (one a shard of the mesh, or an eager
+    association beside the next movie's detection). So the block holds a
+    count: the first thread in saves the switches and turns TF32 off, the
+    last one out restores them, and no thread inside ever sees TF32 on."""
+    global _tf32_holders, _tf32_saved
+    with _tf32_lock:
+        if _tf32_holders == 0:
+            _tf32_saved = (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_holders += 1
+    try:
+        yield
+    finally:
+        with _tf32_lock:
+            _tf32_holders -= 1
+            if _tf32_holders == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _tf32_saved
 
 
 def get_data_standardization_scaler(fname):

@@ -168,5 +168,7 @@ def test_unlabelled_dataset_has_no_ground_truth(tmp_path):
     assert d.get_detection_metrics('all', 0) == (None, None, None)
     with pytest.raises(ValueError, match='No labels'):
         d.get_frame_dets('groundtruth', 0)
-    with pytest.raises(NotImplementedError, match='M14'):
-        PAD(None, p, P, None, eager_assoc=True)
+    # eager association: off by default for a callable detector, on when
+    # asked for
+    assert not d._eager_enabled and d._eager_assoc is None
+    assert PAD(None, p, P, None, eager_assoc=True)._eager_enabled

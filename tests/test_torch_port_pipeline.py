@@ -39,6 +39,7 @@ from axtrack_tpu_torch import interface as PI
 from axtrack_tpu_torch.data.synthetic import make_synthetic_timelapse
 from axtrack_tpu_torch.data.tiffio import write_tiff
 from axtrack_tpu_torch.models.yolo import weights_from_jax
+from axtrack_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(1)
 
@@ -234,7 +235,7 @@ def test_cnn_route_equals_jax(tmp_path):
     assert n_pairs > 0
 
 
-def test_cache_roundtrip_and_missing_weights(tmp_path):
+def test_cache_roundtrip_and_missing_weights(tmp_path, monkeypatch):
     data, bundle, tracks = _setup(tmp_path)
     with pytest.raises(ValueError, match='init_seed'):
         PI.setup_inference(str(tmp_path / 'p'), device='cpu',
@@ -256,5 +257,13 @@ def test_cache_roundtrip_and_missing_weights(tmp_path):
                                 use_cached_datasets='from')
     b = PI.inference(tl2, oracle, dest, params, 'from', 'from', 'from')
     pd.testing.assert_frame_equal(a.IDed_dets_all, b.IDed_dets_all)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        PI.inference(tl, oracle, dest, params, shard_frames=True)
+    # the sharded route: its default mesh takes every card (none here); on
+    # a mesh of two CPU shards it gives what the single path gives
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, 'is_available', lambda: False)
+        with pytest.raises(RuntimeError, match='CUDA'):
+            PI.inference(tl, oracle, dest, params, shard_frames=True)
+    c = PI.inference(tl, oracle, dest, params, None, None, None,
+                     shard_frames=True,
+                     mesh=make_mesh(devices=['cpu'] * 2, n_model=1))
+    pd.testing.assert_frame_equal(a.IDed_dets_all, c.IDed_dets_all)
