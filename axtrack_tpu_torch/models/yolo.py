@@ -27,6 +27,7 @@ input rows permuted from the flax NHWC flatten order to this module's NCHW
 order (the inverse of ``torch_convert._nchw_to_nhwc_flat_perm``). So the
 state dict has the reference checkpoint's names and layout.
 """
+import contextvars
 import math
 
 import numpy as np
@@ -53,6 +54,12 @@ def make_activation(spec):
     raise ValueError(f'unknown activation {spec!r}')
 
 
+# Set by a data row of a mesh step (``parallel/mesh.py``) to
+# ``fn(bn, x)``: a train-mode BatchNorm then takes its statistics over
+# every row of the step's batch.
+BATCH_NORM_SYNC = contextvars.ContextVar('BATCH_NORM_SYNC', default=None)
+
+
 class FlaxBatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d in f32 (its input is cast) whose train-mode update of
     the running statistics is flax's (``axtrack_tpu/models/yolo.py:67-68``):
@@ -60,7 +67,8 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     the *biased* batch variance (torch's own update uses the unbiased one).
     ``momentum`` is torch's: flax's is 1 minus it. Normalisation is
     unchanged: batch statistics in train mode, running ones in eval
-    mode."""
+    mode. Inside a mesh step the batch statistics are the whole batch's,
+    across shards (``BATCH_NORM_SYNC``)."""
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -69,6 +77,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         x = x.float()
         if not self.training:
             return super().forward(x)
+        sync = BATCH_NORM_SYNC.get()
+        if sync is not None:
+            return sync(self, x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
@@ -135,21 +146,35 @@ class CNNBlock(nn.Module):
         return self.activation(self.batchnorm(self.conv(x)))
 
 
+def dtype_linear(x, weight, bias, dtype):
+    """flax's ``nn.Dense(dtype=...)`` followed by ``astype(f32)`` with
+    torch's [out, in] weight: input and weight cast to ``dtype``, the bias
+    cast and added after the product, the result f32 (in f32, one
+    ``linear``). A layer split along its input features gives ``x`` and
+    ``weight`` as lists of blocks (``parallel/mesh.py``): their products
+    are summed in block order on the first block's device, then the bias
+    is added."""
+    if isinstance(x, torch.Tensor):
+        if dtype == torch.float32:
+            return nn.functional.linear(x, weight, bias)
+        x, weight = [x], [weight]
+    y = None
+    for xi, wi in zip(x, weight):
+        part = nn.functional.linear(xi.to(dtype), wi.to(xi.device, dtype))
+        y = part if y is None else y + part.to(y.device)
+    return (y + bias.to(y.device, dtype)).float()
+
+
 class DtypeLinear(nn.Linear):
-    """nn.Linear computing in ``dtype`` (inputs, weight and bias cast; the
-    bias added after the product) with an f32 result, as flax's
-    ``nn.Dense(dtype=...)`` followed by ``astype(f32)``."""
+    """nn.Linear computing in ``dtype`` with an f32 result
+    (``dtype_linear``)."""
 
     def __init__(self, in_features, out_features, dtype=torch.float32):
         super().__init__(in_features, out_features)
         self.dtype = dtype
 
     def forward(self, x):
-        if self.dtype == torch.float32:
-            return super().forward(x)
-        dt = self.dtype
-        y = nn.functional.linear(x.to(dt), self.weight.to(dt))
-        return (y + self.bias.to(dt)).float()
+        return dtype_linear(x, self.weight, self.bias, self.dtype)
 
 
 # the FC head of a backbone architecture (axtrack_tpu/models/yolo.py:102-107)

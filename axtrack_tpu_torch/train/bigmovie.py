@@ -20,6 +20,12 @@ remainder, unless the budget allows fewer frames than the alignment step.
 
 The chunk budget is ``AXTRACK_CHUNK_BUDGET`` (bytes of device working
 set a chunk), else an eighth of the card's memory; on the CPU no limit.
+
+On a mesh (``state.mesh``) the chunk is copied, preprocessed and tiled on
+the mesh's first device, where the dataset lives, and each batch is split
+over 'data' in the engine's mesh step. The JAX package also splits the
+chunk's frames over 'data' for the preprocessing (its
+``frames_constrain``); the port does not yet.
 """
 import os
 

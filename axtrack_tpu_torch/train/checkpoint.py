@@ -5,7 +5,8 @@ utils.py:258-288): one ``E%04d.pt`` file per saved epoch holding the model
 ``state_dict`` (parameters and BatchNorm statistics), the Adam state and
 the epoch. The reference's own ``E*.pth`` files load too, their weights
 only (``models/torch_convert.py``). ``state_from_jax`` carries a JAX
-training checkpoint across.
+training checkpoint across (then ``parallel.mesh.distribute_state`` onto a
+mesh). A state on a mesh is saved in the single-device layout.
 """
 import glob
 import os
@@ -16,25 +17,49 @@ import torch
 from .. import config
 from ..models.torch_convert import load_torch_checkpoint
 from ..models.yolo import build_model, weights_from_jax
+from ..parallel.mesh import gathered_state_dict, param_pieces
 
 
 def save_checkpoint(state, filename, include_opt=True):
     """Save model + optimizer + epoch to ``filename`` (``.pt`` appended
     when missing). include_opt=False drops the Adam moments, as deployment
-    bundles do. Returns the path."""
+    bundles do. A state on a mesh is saved in the single-device layout:
+    the shards of its split FC layers, and of their optimizer moments,
+    put back together, so ``deploy_run`` serves it and ``LOAD_MODEL``
+    resumes it on one device. Returns the path."""
     print('=> Saving model checkpoint')
     path = filename if filename.endswith('.pt') else f'{filename}.pt'
-    to_cpu = lambda v: v.detach().cpu() if torch.is_tensor(v) else v  # noqa
-    ckpt = {'model': {k: to_cpu(v)
-                      for k, v in state.model.state_dict().items()},
+    ckpt = {'model': gathered_state_dict(state.model),
             'epoch': int(state.epoch)}
     if include_opt:
-        opt = state.optimizer.state_dict()
-        opt['state'] = {i: {k: to_cpu(v) for k, v in s.items()}
-                        for i, s in opt['state'].items()}
-        ckpt['optimizer'] = opt
+        ckpt['optimizer'] = gathered_optimizer_state(state)
     torch.save(ckpt, path)
     return path
+
+
+def gathered_optimizer_state(state):
+    """The optimizer's ``state_dict`` on the CPU as the single-device
+    model's optimizer would hold it: a split parameter's moments joined
+    like the parameter (``parallel.mesh.param_pieces``)."""
+    opt = state.optimizer.state_dict()
+    if len(opt['param_groups']) != 1:
+        raise ValueError('a checkpoint holds one parameter group')
+    pieces = param_pieces(state.model)
+
+    def join(key, value, parts, dim):
+        if not torch.is_tensor(value):
+            return value
+        if value.dim() == 0:
+            return value.detach().cpu()
+        return torch.cat([s[key].detach().cpu() for s in parts], dim)
+    opt['state'] = {}
+    for i, (_, tensors, dim) in enumerate(pieces):
+        parts = [state.optimizer.state.get(t) for t in tensors]
+        if parts[0]:
+            opt['state'][i] = {k: join(k, v, parts, dim)
+                               for k, v in parts[0].items()}
+    opt['param_groups'][0]['params'] = list(range(len(pieces)))
+    return opt
 
 
 def checkpoint_file(load_model):

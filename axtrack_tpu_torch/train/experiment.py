@@ -18,6 +18,8 @@ import os
 import time
 
 from .. import config
+from ..config import resolve_device
+from ..parallel.mesh import distribute_state, same_device
 from ..params import (get_default_parameters, write_parameters,
                       check_parameters, params2text, load_parameters,
                       to_device_specifc_params)
@@ -29,11 +31,20 @@ from .checkpoint import save_checkpoint
 
 def run_experiment(exp_name, parameters, save_results=True, mesh=None):
     """Train on P['DEVICE'] for P['EPOCHS'] epochs (reference
-    experiment.py:49-72). Returns the TrainState."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'mesh-parallel training is a later slice of the port '
-            '(ROADMAP M14b)')
+    experiment.py:49-72). Returns the TrainState.
+
+    ``mesh``: a ('data', 'model') mesh (``parallel.mesh.make_mesh``, or
+    ``parallel.multihost.make_global_mesh`` across processes) to train on:
+    every step's batch split over 'data', the hidden FC layers over
+    'model' (``parallel.mesh.distribute_state``), in the device-resident,
+    streamed and chunk-resident epochs alike. The datasets live on the
+    mesh's first device, which P['DEVICE'] must name. The reference trains
+    on one device."""
+    if mesh is not None and not same_device(
+            resolve_device(parameters['DEVICE']), mesh.primary):
+        raise ValueError(f"P['DEVICE'] ({parameters['DEVICE']}) is not the "
+                         f"mesh's first device ({mesh.primary}), where "
+                         'the datasets live')
     set_seed(parameters['SEED'])
     print(f'Running Experiment: {exp_name}', flush=True)
     check_parameters(parameters, get_default_parameters())
@@ -49,6 +60,8 @@ def run_experiment(exp_name, parameters, save_results=True, mesh=None):
 
     train_data, test_data = engine.setup_data(parameters)
     state = engine.setup_model(parameters)
+    if mesh is not None:
+        state = distribute_state(state, mesh)
     optimize(parameters, train_data, test_data, state, save_results,
              MODELS_DIR, METRICS_DIR, RUN_DIR)
     return state

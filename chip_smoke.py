@@ -133,6 +133,22 @@ Phases, each printed with its seconds:
      the seconds, the frames and K1 launches by shard and the peak device
      memory of each. The copies between distinct cards are not exercised
      on one card.
+ 19. training on a mesh at the deployed architecture, on logical meshes of
+     the one card (make_mesh(n_data, n_model, devices=[cuda:0] * n); NCCL
+     puts no two ranks on one card, so one process drives them): (a) three
+     SGD steps at batch 16 of phase 7's tiles on 2x1, 1x2 and 2x2 meshes
+     (FC0, 40960x1024, split in two on 'model'), then the eval step on
+     the same batches, must hold the JAX package's mesh bounds against the
+     same steps on one device (per-step losses rtol 2e-3, parameters and
+     BatchNorm running statistics rtol 2e-3 / atol 3e-4); a fourth train
+     step runs under torch.profiler; it prints each mesh's step ms (CUDA
+     events), the device's busy ms in the profiled step as a share of
+     that step's own ms, and peak device memory; (b)
+     run_experiment(mesh=2x2) for 2 epochs on phase 7's movie (epoch 0's
+     F1 sweep on the gathered model must have run), then deploy_run ->
+     setup_inference -> inference: identities present, its K1 launches
+     counted into the kernel line; (c) phase 16's chunked epoch on the
+     2x2 mesh against one device, within (a)'s bounds.
 
 Whether the phases pass or fail, the script then ends every process they
 started (phase 13's worker pool leaves the multiprocessing resource tracker
@@ -1838,6 +1854,183 @@ def serving_phase(workdir, ref4, torch, np, GC, dev='cuda'):
     return added
 
 
+# phase 19: logical meshes of the one card (n_data x n_model) and the
+# bounds the JAX package holds its mesh to one device with
+# (tests/test_parallel.py: SGD, per-step losses rtol 2e-3, parameters rtol
+# 2e-3 / atol 3e-4)
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+MESH_LOSS_RTOL, MESH_PARAM_RTOL, MESH_PARAM_ATOL = 2e-3, 2e-3, 3e-4
+MESH_SGD_LR = 2e-4
+
+
+def sgd_state(P, sd, torch, mesh=None):
+    """A TrainState of P's architecture on the card with the weights
+    ``sd`` and plain SGD at MESH_SGD_LR, distributed over ``mesh`` when
+    one is given."""
+    from axtrack_tpu_torch.models.yolo import build_model
+    from axtrack_tpu_torch.parallel.mesh import distribute_state
+    from axtrack_tpu_torch.train import engine
+    model = build_model(P).to('cuda')
+    model.load_state_dict(sd)
+    state = engine.TrainState(
+        model, torch.optim.SGD(model.parameters(), lr=MESH_SGD_LR), P)
+    return distribute_state(state, mesh) if mesh is not None else state
+
+
+def mesh_close(got, want, torch, np, what):
+    """Phase 19's bounds: per-step losses (dicts of the engine's epoch
+    components) and the single-device state dicts of two runs."""
+    from axtrack_tpu_torch.parallel.mesh import gathered_state_dict
+    rel = float(np.max(np.abs(got[0]['total_summed_loss']
+                              - want[0]['total_summed_loss'])
+                       / np.abs(want[0]['total_summed_loss'])))
+    a = gathered_state_dict(got[1].model)
+    b = gathered_state_dict(want[1].model)
+    worst = max(float((a[k] - b[k]).abs().max()) for k in b
+                if not k.endswith('num_batches_tracked'))
+    ok = (sorted(a) == sorted(b) and rel <= MESH_LOSS_RTOL and all(
+        torch.allclose(a[k].float(), b[k].float(), rtol=MESH_PARAM_RTOL,
+                       atol=MESH_PARAM_ATOL) for k in b))
+    if not ok:
+        raise SystemExit(f'phase 19: {what} differs from one device: loss '
+                         f'relative difference {rel:.3g}, largest parameter '
+                         f'difference {worst:.3g}')
+    return rel, worst
+
+
+def mesh_training_phase(P, workdir, GC, torch, np):
+    """Phase 19: training on logical meshes of the one card. (a) three SGD
+    steps at batch 16 on 2x1, 1x2 and 2x2 against one device; (b)
+    run_experiment(mesh=2x2) for 2 epochs, then deploy_run ->
+    setup_inference -> inference (returns its K1 launches); (c) phase 16's
+    chunked epoch on the 2x2 mesh against one device."""
+    import glob
+    from axtrack_tpu_torch import config
+    from axtrack_tpu_torch.models.yolo import build_model, init_weights
+    from axtrack_tpu_torch.parallel.mesh import ShardedLinear, make_mesh
+    from axtrack_tpu_torch.train import bigmovie, engine, experiment
+    dev = torch.device('cuda')
+
+    def mesh(shape):
+        return make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+
+    data, _ = engine.setup_data(dict(P, CACHE=None), skip_test=True)
+    data.construct_tiles(force_no_transformation=True)
+    bs = P['BATCH_SIZE']
+    batches = [engine.gather_batch(data, np.arange(b * bs, (b + 1) * bs)
+                                   % len(data)) for b in range(3)]
+    del data
+    sd = init_weights(build_model(P), torch.Generator().manual_seed(0)
+                      ).state_dict()
+
+    def steps(shape):
+        """Three timed steps, the eval step on the same batches, then a
+        train step under torch.profiler: (the train and eval losses and
+        the state, the train step ms, the peak GiB, the device's busy ms in
+        the profiled step, the profiled step's ms)."""
+        from torch.profiler import ProfilerActivity, profile
+        state = sgd_state(P, sd, torch, shape and mesh(shape))
+        state.step_events = []
+        torch.cuda.reset_peak_memory_stats()
+        out = engine.run_steps(state, 'train', iter(batches))
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for _, (a, b) in state.step_events]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ev = engine.run_steps(state, 'test', iter(batches))
+        out = {k: np.concatenate([out[k], ev[k]]) for k in out}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.run_steps(state, 'train', iter(batches[:1]))
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        a, b = state.step_events[-1][1]
+        return (out, state), ms, peak, busy, a.elapsed_time(b)
+
+    def report(ms, peak, busy, profiled_ms):
+        return (f'step ms {ms}, warm {ms[-1]:.3f} ms; device busy '
+                f'{busy:.3f} ms in a profiled step of {profiled_ms:.3f} ms '
+                f'({100 * busy / profiled_ms:.1f}% of it); peak device '
+                f'memory {peak:.2f} GiB')
+
+    want, *m = steps(None)                                          # (a)
+    print(f'(a) one device: 3 SGD steps and 3 eval steps at batch {bs}, '
+          f'{report(*m)}')
+    for shape in MESH_SHAPES:
+        got, *m = steps(shape)
+        split = [type(layer).__name__ for layer in got[1].model.fcs
+                 if isinstance(layer, (torch.nn.Linear, ShardedLinear))]
+        rel, worst = mesh_close(got, want, torch, np, f'the {shape} mesh')
+        print(f'(a) {shape[0]}x{shape[1]} mesh ({split}): losses largest '
+              f'relative difference {rel:.3g}, parameters largest '
+              f'difference {worst:.3g}; {report(*m)}')
+    del want, got
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()                                        # (b)
+    state = experiment.run_experiment('smoke_mesh', P, save_results=True,
+                                      mesh=mesh((2, 2)))
+    run_dir, = glob.glob(os.path.join(config.OUTPUT_DIR, 'runs',
+                                      'smoke_mesh', 'run00_*'))
+    info = read_epoch_csv(os.path.join(run_dir, 'metrics', 'E0000.csv'))
+    thr = P['BBOX_THRESHOLD']
+    if (state.mesh is None or not np.isfinite(
+            info['train']['total_summed_loss'])
+            or str(('F1', thr)) not in info['train']):
+        raise SystemExit('phase 19: run_experiment on the mesh gave no '
+                         'finite loss or no F1 sweep')
+    print(f'(b) run_experiment(mesh=2x2), 2 epochs: '
+          f'{time.perf_counter() - t0:.3f} s; epoch 0 train loss '
+          f'{info["train"]["total_summed_loss"]:.6g}, F1 at {thr} '
+          f'{info["train"][str(("F1", thr))]}')
+    del state
+    torch.cuda.empty_cache()
+    launches = train_deploy_infer(P, workdir, GC, exp='smoke_mesh', epoch=1)
+    torch.cuda.empty_cache()
+
+    P = dict(P, CACHE=None, SHUFFLE=False)                          # (c)
+    script = [{'vflip': .9, 'translateX': .65}.get(k, .5)
+              for k in P['USE_TRANSFORMS']]
+    whole, _ = engine.setup_data(P, skip_test=True)
+    P2 = dict(P, STANDARDIZE=whole.stnd_scaler)
+    raw_f32 = whole.X.numel() * 4
+    del whole
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with environ(AXTRACK_DEVICE_MOVIE_BUDGET=str(raw_f32 // 2),
+                     AXTRACK_RESIDENT_U16_BUDGET='0'):
+            staged, _ = engine.setup_data(P2, skip_test=True)
+            if not staged._u16_staged or staged._X_u16_dev is not None:
+                raise SystemExit('phase 19: the movie is not staged and '
+                                 'streamed')
+            staged._rng = ScriptedRng(script)
+            engine.prepare_data(staged)
+            K = staged.ntiles_kept
+            per_frame = (K * P['TILESIZE'] ** 2 * 4
+                         + staged.sizey * staged.sizex * 10)
+            plan = bigmovie.plan_chunks(staged, P2,
+                                        chunk_budget=3 * per_frame)
+            if len(plan[0]) < 2:
+                raise SystemExit('phase 19: the chunked epoch has one chunk')
+            runs = []
+            for shape in ((2, 2), None):
+                state = sgd_state(P2, sd, torch, shape and mesh(shape))
+                runs.append((bigmovie.run_epoch_chunked(
+                    state, staged, 'train', P2, plan=plan), state))
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    rel, worst = mesh_close(*runs, torch, np, 'the chunked epoch on 2x2')
+    print(f'(c) chunked epoch ({len(plan[0])} chunks, '
+          f'{len(runs[0][0]["total_summed_loss"])} steps) on the 2x2 mesh: '
+          f'losses largest relative difference {rel:.3g}, parameters '
+          f'largest difference {worst:.3g}')
+    del runs, staged
+    torch.cuda.empty_cache()
+    return launches
+
+
 def backbones_phase(workdir, P, torch, np, G, GC):
     """Phase 17: each backbone from a reference .pth bundle through the
     main path and its train step; resnet also through run_experiment ->
@@ -2074,6 +2267,15 @@ def run():
                    'multi-movie detector; eager association; inference_many;'
                    ' the deployed-size movie on 2 and 4 shards')
         for kname, n in serving_phase(workdir, ref4, torch, np, GC).items():
+            launches[kname] += n
+        done(t0)
+
+        t0 = phase('19. training on a mesh at the deployed architecture '
+                   '(logical meshes of the card): SGD steps on 2x1, 1x2 and '
+                   '2x2; run_experiment(mesh=2x2) -> deploy_run -> '
+                   'inference; the chunked epoch on 2x2')
+        for kname, n in mesh_training_phase(P, workdir, GC, torch,
+                                            np).items():
             launches[kname] += n
         done(t0)
     finally:

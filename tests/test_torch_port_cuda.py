@@ -1,6 +1,7 @@
-"""The port on the GPU: kernel K1 against its plain version, and the
+"""The port on the GPU: kernel K1 against its plain version, the
 training path's device code, the auction tracker, the mixed-precision
-detector and the backbone detectors against the CPU.
+detector and the backbone detectors against the CPU, and the mesh step on
+logical shards of the card against one device.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a) and are marked ``cuda``;
 on a machine without one they skip. Run them on the card with
@@ -386,3 +387,43 @@ def test_eager_equals_exact_on_the_card(dev, tmp_path):
     tl.release_device_arrays()           # the thread holds what it reads
     eager.assign_ids()
     _same_result(exact, eager)
+
+
+def test_full_architecture_mesh_grads_equal_one_device(dev):
+    """The mesh step at the deployed architecture on a 4 x 2 mesh of
+    logical shards of the card (batch 8 of 512-px tiles, eval-mode
+    forward, TF32 off): the loss rtol 1e-5 and every gradient rtol 1e-4 /
+    atol 1e-5 of one device's (the JAX package's TestFullScaleTP
+    bounds)."""
+    import os
+    from axtrack_tpu_torch.models.loss import yolo_loss
+    from axtrack_tpu_torch.params import load_parameters
+    from axtrack_tpu_torch.parallel import mesh as M
+    from axtrack_tpu_torch.train import engine as PE
+    P = load_parameters(None, None, from_directory=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        'deployed_model'))
+    P.update(DEVICE=str(dev), LOAD_MODEL=None)
+    model = PE.setup_model(P).model.eval()
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.random((8, 5, 512, 512), np.float32)).to(dev)
+    tgt = torch.zeros(8, 12, 12, 4, device=dev)
+    kw = dict(Sy=P['SY'], Sx=P['SX'], lambda_obj=P['L_OBJECT'],
+              lambda_noobj=P['L_NOBJECT'],
+              lambda_coord_anchor=P['L_COORD_ANCHOR'])
+    mesh = M.make_mesh(4, 2, devices=[dev] * 8)
+    with PE.exact_f32():
+        loss, _ = yolo_loss(model(X), tgt, **kw)
+        loss.backward()
+        want = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        M.shard_params(model, mesh)
+        got, _ = M.mesh_loss(model, mesh, X, tgt,
+                             lambda p, t: yolo_loss(p, t, **kw))
+        got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(loss.detach()),
+                               rtol=1e-5)
+    for name, tensors, dim in M.param_pieces(model):
+        g = torch.cat([t.grad.cpu() for t in tensors], dim)
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)

@@ -41,6 +41,7 @@ from axtrack_tpu_torch import config
 from axtrack_tpu_torch import interface as PI
 from axtrack_tpu_torch.data.synthetic import write_fixture
 from axtrack_tpu_torch.ops import geodesic_cuda as GC
+from axtrack_tpu_torch.parallel.mesh import make_mesh
 from axtrack_tpu_torch.params import get_default_parameters
 from axtrack_tpu_torch.train.checkpoint import state_from_jax, load_checkpoint
 from axtrack_tpu_torch.train import engine as PE
@@ -189,8 +190,9 @@ def test_deploy_run_then_inference(tmp_path, monkeypatch):
         load_checkpoint(['exp', 'run00', which], s)
         assert s.epoch == 2
     assert PI.load_parameters('exp', 'run00')['EPOCHS'] == 2
-    with pytest.raises(NotImplementedError, match='M14'):
-        run_experiment('exp', P, save_results=False, mesh=object())
+    with pytest.raises(ValueError, match='first device'):
+        run_experiment('exp', P, save_results=False, mesh=make_mesh(
+            devices=[torch.device('meta')]))
 
 
 def test_k1_flag_reduction_counts_minus_one_as_not_certified(monkeypatch):
