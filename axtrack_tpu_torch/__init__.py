@@ -3,10 +3,12 @@ NVIDIA GPUs.
 
 Same public surface as ``axtrack_tpu``, written in PyTorch, with the
 chamfer geodesic kernel in CUDA C++ (``csrc/chamfer.cu``): inference
-(setup_inference -> prepare_input_data -> inference -> IDed_dets_all) and
-training (``train.experiment.run_experiment`` -> ``deploy_run``). The
-package imports no JAX and nothing of ``axtrack_tpu``; it runs on the GPU
-unless a caller passes ``device='cpu'`` or sets ``AXTRACK_DEVICE=cpu``.
+(setup_inference -> prepare_input_data -> inference -> IDed_dets_all ->
+visualize_inference), training (``train.experiment.run_experiment`` ->
+``deploy_run``), training-data preparation (``data.prep``) and run
+evaluation (``evaluation``). The package imports no JAX and nothing of
+``axtrack_tpu``; it runs on the GPU unless a caller passes
+``device='cpu'`` or sets ``AXTRACK_DEVICE=cpu``.
 """
 import importlib
 
@@ -18,7 +20,8 @@ _LAZY = {name: '.interface' for name in (
     'visualize_inference', 'deploy_run')}
 _LAZY.update({name: '.config' for name in (
     'PKG_DIR', 'DEPLOYED_MODEL_DIR', 'OUTPUT_DIR', 'TRAINING_DATA_DIR',
-    'DEFAULT_DEVICE', 'resolve_device')})
+    'DEFAULT_DEVICE', 'VIDEO_ENCODER', 'resolve_device')})
+_LAZY['_compute_astar_path'] = '.utils.paths'
 
 __all__ = list(_LAZY)
 

@@ -116,3 +116,53 @@ def write_fixture(directory, name='synthetic_timelapse', **kwargs):
     write_labels_csv(lbl, labels)
     return {'tif': tif, 'mask': npy, 'labels': lbl, 'frames': frames,
             'mask_arr': mask, 'labels_arr': labels}
+
+
+def ensure_example_fixture(examples_dir, H=2920, W=6364, T=20, n_axons=30,
+                           seed=7, n_channels=12, force=False):
+    """Write the example movie (``example_timelapse.tif`` and its
+    ``_mask.npy``) into ``examples_dir`` unless it is there already;
+    returns the TIFF's path. The movie is the JAX package's seeded draw
+    (its 20 frames at the reference's 2920x6364 frame size); its labels
+    go aside as ``example_timelapse_true_labels.csv``, a name the example
+    flow does not read, since that flow treats the movie as unlabelled."""
+    tif = os.path.join(examples_dir, 'example_timelapse.tif')
+    mask = os.path.join(examples_dir, 'example_timelapse_mask.npy')
+    if not force and os.path.exists(tif) and os.path.exists(mask):
+        return tif
+    fx = write_fixture(examples_dir, name='example_timelapse', T=T, H=H,
+                       W=W, n_axons=n_axons, seed=seed,
+                       n_channels=n_channels)
+    os.replace(fx['labels'], os.path.join(
+        examples_dir, 'example_timelapse_true_labels.csv'))
+    return tif
+
+
+class OracleDetector:
+    """A detector ``f(t, X) -> grid`` that returns a labelled dataset's own
+    target grids, confidences scaled to ``conf`` (the first three channels,
+    f32 [K, Sx, Sy, 3] on the dataset's device), plus ``noise_cells``
+    distractor cells of confidence ``noise_conf`` at random empty cells:
+    near-ground-truth detections for testing decode, NMS and tracking
+    apart from a trained net."""
+
+    def __init__(self, dataset, conf=0.95, noise_cells=0, noise_conf=0.6,
+                 seed=0):
+        self.dataset = dataset
+        self.conf = conf
+        self.noise_cells = noise_cells
+        self.noise_conf = noise_conf
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, t, X):
+        t_all = self.dataset.timepoints_indices[t]
+        grid = self.dataset.target_tiled[t_all][..., :3].clone()
+        grid[..., 0] *= self.conf
+        for _ in range(self.noise_cells):
+            k = self.rng.integers(0, grid.shape[0])
+            gx = self.rng.integers(0, grid.shape[1])
+            gy = self.rng.integers(0, grid.shape[2])
+            if grid[k, gx, gy, 0] == 0:
+                grid[k, gx, gy] = grid.new_tensor(
+                    (self.noise_conf, self.rng.random(), self.rng.random()))
+        return grid

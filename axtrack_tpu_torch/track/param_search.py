@@ -141,3 +141,48 @@ def write_csv(fname, rows):
         w.writerow([''] + keys)
         for i, r in enumerate(rows):
             w.writerow([i] + [_csv_value(r[k]) for k in keys])
+
+
+def _parse_column(cells):
+    """A CSV column's cells as pandas' reader types them: int64 if every
+    cell is an integer, else float64 if every cell is a number (an empty
+    cell is NaN), else bool for True/False, else the strings."""
+    try:
+        return np.asarray([int(c) for c in cells], np.int64)
+    except ValueError:
+        pass
+    try:
+        return np.asarray([float(c) if c else np.nan for c in cells],
+                          np.float64)
+    except ValueError:
+        pass
+    if set(cells) <= {'True', 'False'}:
+        return np.asarray([c == 'True' for c in cells])
+    return np.asarray(cells, object)
+
+
+def read_csv(fname):
+    """A results CSV (``write_csv``'s, or the JAX package's) as columns:
+    a dict of numpy arrays in the header's order, the index column
+    dropped."""
+    with open(fname, newline='') as f:
+        rows = list(csv.reader(f))
+    return {k: _parse_column([r[1 + j] for r in rows[1:]])
+            for j, k in enumerate(rows[0][1:])}
+
+
+def _descending_codes(values):
+    """Ranks of ``values`` for a descending sort, NaN after every value."""
+    v = np.asarray(values, np.float64)
+    nan = np.isnan(v)
+    uniq, inv = np.unique(v[~nan], return_inverse=True)
+    codes = np.full(len(v), len(uniq))
+    codes[~nan] = len(uniq) - 1 - inv
+    return codes
+
+
+def best_first(results, by=('idf1', 'mota')):
+    """Row order of the results columns sorted by ``by`` descending, the
+    first key first, ties in row order and NaN last: what pandas'
+    ``sort_values(list(by), ascending=False)`` gives."""
+    return np.lexsort([_descending_codes(results[k]) for k in by[::-1]])

@@ -1,7 +1,7 @@
 """Infrastructure helpers (counterpart of ``axtrack_tpu/utils``): seeding,
-the TF32 switch of f32 compute, the standardization scaler of a bundle, the
-preprocessing samples of a run, run directories and the tri-state stage
-cache."""
+the TF32 switch of f32 compute, matplotlib's TeX switch, the
+standardization scaler of a bundle, the preprocessing samples of a run and
+their reader, run directories and the tri-state stage cache."""
 import contextlib
 import csv
 import pickle
@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from .caching import StageCache  # noqa: F401
-from .rundirs import create_logging_dirs, get_run_dir  # noqa: F401
+from .rundirs import create_logging_dirs, get_run_dir, clean_rundirs  # noqa: F401
 
 
 def set_seed(seed):
@@ -52,6 +52,21 @@ def exact_f32():
             if _tf32_holders == 0:
                 (torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32) = _tf32_saved
+
+
+def turn_tex(on_off):
+    """Toggle TeX rendering in matplotlib (reference utils.py:320-325):
+    'on' only where a latex binary exists, else nothing changes (and
+    matplotlib is not imported)."""
+    import shutil
+    if on_off == 'on' and shutil.which('latex'):
+        import matplotlib.pyplot as plt
+        plt.rc('text', usetex=True)
+        plt.rc('text.latex', preamble=r'\usepackage{amsmath} \usepackage{upgreek}'
+                                      r' \usepackage{underscore}')
+    elif on_off == 'off':
+        import matplotlib.pyplot as plt
+        plt.rc('text', usetex=False)
 
 
 def get_data_standardization_scaler(fname):
@@ -95,3 +110,17 @@ def save_preproc_metrics(dest_dir, dataset1, dataset2=None):
                                           + [c[lo:hi] for c in cols]),
                        fmt=['%d'] + ['%.9g'] * len(cols), delimiter=',')
     return fname
+
+
+def read_preproc_metrics(fname, datasets=None):
+    """The samples of a ``save_preproc_metrics`` CSV as a dict (dataset,
+    step, 't_0'|'t_-1') -> f32[n], in the file's column order; only the
+    columns of ``datasets`` (names) when given."""
+    with open(fname, newline='') as f:
+        header = [next(csv.reader([f.readline()]))[1:] for _ in range(3)]
+        names = list(zip(*header))
+        cols = [i for i, nm in enumerate(names)
+                if datasets is None or nm[0] in datasets]
+        vals = np.loadtxt(f, delimiter=',', dtype=np.float32, ndmin=2,
+                          usecols=[1 + i for i in cols])
+    return {names[i]: vals[:, j] for j, i in enumerate(cols)}
