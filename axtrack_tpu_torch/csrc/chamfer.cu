@@ -607,8 +607,13 @@ cudaError_t launch(const uint32_t* bits, int row_words, int n_rows,
   using L = Layout<E, WPW>;
   auto kernel = chamfer_kernel<E, WPW>;
   const int smem = block_smem(blocks_per_sm, L::kBytes);
+  // The limit is the kernel's, shared by every host thread: each sets the
+  // largest a launch of it may ask for (one block an SM), never its own
+  // smem, or another thread's smaller limit could land between this call
+  // and the launch below and fail it with cudaErrorInvalidValue.
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      block_smem(1, L::kBytes));
   if (err != cudaSuccess) return err;
   dim3 grid((n_windows + L::kWindows - 1) / L::kWindows);
   kernel<<<grid, kBlockThreads, smem, stream>>>(

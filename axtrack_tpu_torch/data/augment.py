@@ -115,3 +115,21 @@ def transform_anchors(anchor_y, anchor_x, angle, flip_y, flip_x, dy, dx,
         x = np.where(ok, x_rot, np.nan)
         y = np.where(ok, y_rot, np.nan)
     return np.round(y), np.round(x)
+
+
+def apply_transformations(transform_configs, X, target, sizey, sizex, rng):
+    """Draw a fresh config from ``rng`` and transform the frames and the
+    anchors together (``axtrack_tpu``'s ``apply_transformations``,
+    reference data_utils.py:139-174). X: [T, H, W] tensor; target: the
+    port's label table, a dict with f64 [T, A] 'anchor_y' and 'anchor_x'
+    (its other keys are kept). Returns (X, target, the drawn config)."""
+    transform_configs = draw_transform_config(transform_configs, rng)
+    dy, dx, flip_y, flip_x, angle = config_to_transform_params(
+        transform_configs)
+    X = transform_frames(X, dy=dy, dx=dx, flip_y=flip_y, flip_x=flip_x,
+                         angle=angle or 0.0)
+    anchor_y, anchor_x = transform_anchors(
+        target['anchor_y'], target['anchor_x'], angle, flip_y, flip_x, dy,
+        dx, sizey, sizex)
+    target = dict(target, anchor_y=anchor_y, anchor_x=anchor_x)
+    return X, target, transform_configs

@@ -46,6 +46,7 @@ from ..ops import tiling as TL
 from ..ops.targets import read_labels_csv, flat_labels, labels_to_yolo_grid
 from .augment import (draw_transform_config, config_to_transform_params,
                       transform_frames, transform_anchors)
+from .augment import apply_transformations  # noqa: F401 (re-export)
 from .tiffio import img_as_float32, read_tiff_raw
 
 IDENTITY = dict(dy=0, dx=0, flip_y=False, flip_x=False, angle=0.0)
@@ -586,20 +587,23 @@ class Timelapse:
             self.X_tiled = None
         self._tiles_clean = False
 
-    def staged_chunk(self, lo, hi):
-        """Raw u16 frames [lo:hi) of a staged movie on the device (as int16
-        bits): a slice of the resident copy, else a copy from the host."""
+    def staged_chunk(self, lo, hi, device=None):
+        """Raw u16 frames [lo:hi) of a staged movie on ``device`` (the
+        movie's by default; as int16 bits): a slice of the resident copy,
+        copied there from the movie's device if it is another, else a copy
+        from the host."""
+        device = self.device if device is None else device
         if self._X_u16_dev is not None:
-            return self._X_u16_dev[lo:hi]
-        return self.X[lo:hi].view(torch.int16).to(self.device)
+            return self._X_u16_dev[lo:hi].to(device)
+        return self.X[lo:hi].view(torch.int16).to(device)
 
-    def _staged_frames(self, lo, hi, raw=None):
-        """Preprocessed frames [lo:hi) of a staged movie, f32 on the
-        device; ``raw`` is their u16 already on the device, if copied."""
+    def _staged_frames(self, lo, hi, raw=None, device=None):
+        """Preprocessed frames [lo:hi) of a staged movie, f32 on
+        ``device``; ``raw`` is their u16 already there, if copied."""
         s = self._stage
         return P.staged_preprocess_u16(
-            self.staged_chunk(lo, hi) if raw is None else raw, s['offset'],
-            s['lower'], s['var'], log_correct=s['log'])
+            self.staged_chunk(lo, hi, device) if raw is None else raw,
+            s['offset'], s['lower'], s['var'], log_correct=s['log'])
 
     def _staged_keep(self, dy, dx, flip_y, flip_x, angle):
         """Kept-tile mask bool[ny, nx] of a staged movie under a transform,
@@ -626,19 +630,20 @@ class Timelapse:
         tiles = TL.tile_frames(ind[0], self.tilesize)
         return (tiles > 0).any(dim=3).any(dim=2).cpu().numpy()
 
-    def _kept(self):
-        return torch.as_tensor(self._tile_flat_idx, device=self.device).long()
+    def _kept(self, device=None):
+        return torch.as_tensor(self._tile_flat_idx, device=(
+            self.device if device is None else device)).long()
 
-    def _staged_range_tiles(self, lo, hi, raw=None):
+    def _staged_range_tiles(self, lo, hi, raw=None, device=None):
         """Kept tiles f32[hi-lo, K, ts, ts] of a staged movie's frames
         [lo:hi), preprocessed and transformed (the epoch's transform) on
-        the device."""
-        x = transform_frames(self._staged_frames(lo, hi, raw),
+        ``device`` (the movie's by default)."""
+        x = transform_frames(self._staged_frames(lo, hi, raw, device),
                              **(self._chunk_epoch or IDENTITY))
         flat = TL.tile_frames(x, self.tilesize).reshape(
             x.shape[0], self.ytiles * self.xtiles, self.tilesize,
             self.tilesize)
-        return flat[:, self._kept()]
+        return flat[:, self._kept(x.device)]
 
     def materialize_tiles(self):
         """Fill ``X_tiled`` of a staged movie as a host tensor, a chunk of
@@ -671,16 +676,18 @@ class Timelapse:
             return self.X_tiled[lo:hi]
         return None
 
-    def range_tiles(self, lo, hi, copied=None):
-        """Kept tiles of frames [lo:hi) on the device, f32[hi-lo, K, ts,
-        ts] ([hi-lo, K, C_col, ts, ts] in the motion modes): built from the
-        raw u16 for a staged movie, else a slice of ``X_tiled``.
-        ``copied``: ``tiles_source(lo, hi)`` already on the device."""
+    def range_tiles(self, lo, hi, copied=None, device=None):
+        """Kept tiles of frames [lo:hi) on ``device`` (the movie's by
+        default), f32[hi-lo, K, ts, ts] ([hi-lo, K, C_col, ts, ts] in the
+        motion modes): built there from the raw u16 for a staged movie,
+        else a slice of ``X_tiled``. ``copied``: ``tiles_source(lo, hi)``
+        already on that device."""
+        device = self.device if device is None else device
         if self._u16_staged and self.X_tiled is None:
-            return self._staged_range_tiles(lo, hi, copied)
+            return self._staged_range_tiles(lo, hi, copied, device)
         if copied is not None:
             return copied
-        return self.X_tiled[lo:hi].to(self.device)
+        return self.X_tiled[lo:hi].to(device)
 
     # ------------------------------------------------------------ caching
     _CACHE_SKIP = ('_rng', 'device', '_padded_mask_dev', '_mask_bits_dev',

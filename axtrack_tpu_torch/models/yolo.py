@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..utils import exact_f32
+
 
 def make_activation(spec):
     """Activation module from a framework-neutral spec ('sigmoid',
@@ -295,6 +297,21 @@ def build_model(params, dtype=torch.float32, fc_dtype=None):
                        in_channels=initial_in_channels(params),
                        seed=params.get('SEED', 0), dtype=dtype,
                        fc_dtype=fc_dtype)
+
+
+@torch.no_grad()
+def detect_axons(model, X):
+    """Eval-mode batched tile inference (``axtrack_tpu``'s
+    ``detect_axons``, reference model.py:119-125) with TF32 off on a card:
+    X f32[ntiles, C, ts, ts] NCHW on the model's device. Returns the grid
+    f32[ntiles, Sx, Sy, 3]; the model's train/eval mode is restored."""
+    training = model.training
+    model.eval()
+    try:
+        with exact_f32():
+            return model(X)
+    finally:
+        model.train(training)
 
 
 @torch.no_grad()

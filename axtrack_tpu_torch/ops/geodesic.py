@@ -20,6 +20,8 @@ This module is the reference the CUDA kernel (``geodesic_cuda.py``,
 """
 import torch
 
+from ..config import resolve_device
+
 INF = 1e9
 INF_I = 1_000_000_000
 # separates segments in the segmented prefix-min; larger than any c - j
@@ -166,6 +168,41 @@ def gather_targets(dmaps, origins, tgts_yx, max_dist, window):
     ok = inside & (nodecount <= max_dist)
     return torch.where(ok, nodecount, torch.tensor(
         max_dist, dtype=torch.float32, device=dmaps.device))
+
+
+def geodesic_pairwise(mask, sources_yx, targets_yx, max_dist=500,
+                      window=1024, max_sweeps=8, device=None):
+    """All-pairs geodesic node-count distances between two point sets on a
+    mask (``axtrack_tpu``'s ``geodesic_pairwise``): the device-side
+    drop-in for ``native.astar_pairwise``, with unreachable encoded as
+    ``max_dist`` (the reference's distance capping).
+
+    Exactness condition: ``window >= 2*max_dist + 1`` (any geodesic of
+    <= max_dist steps stays within the source's L1 ball, which then fits
+    the crop). A smaller window under-reports far distances as the cap;
+    so do too few sweeps on a mask whose geodesics turn back often (the
+    maps are not certified here: ``max_sweeps`` sweeps run, no more).
+
+    mask: bool[H, W] (True = passable); sources_yx, targets_yx: int[N, 2]
+    / int[M, 2] (y, x); each a numpy array or a tensor. The window is
+    clamped to the mask (a multiple of 8) and the mask padded at the
+    bottom and right to fit it. On a card the maps come from K1
+    (``geodesic_cuda.batched_windows_probed``), which takes windows of at
+    most 1024 and raises its ``ValueError`` for a larger one; there is no
+    fallback to the plain version. On the CPU the plain version runs.
+    Returns f32[N, M] on ``device`` (``config.resolve_device``: the card
+    unless the CPU is asked for).
+    """
+    dev = resolve_device(device)
+    mask = torch.as_tensor(mask).to(device=dev, dtype=torch.bool)
+    H, W = mask.shape
+    window = min(window, max(_round_up(max(H, W), 8), 8))
+    padded = torch.nn.functional.pad(
+        mask, (0, max(window - W, 0), 0, max(window - H, 0)))
+    srcs = torch.as_tensor(sources_yx).to(dev, torch.int64).reshape(-1, 2)
+    tgts = torch.as_tensor(targets_yx).to(dev, torch.int64).reshape(-1, 2)
+    dmaps, origins = batched_windows(padded, srcs, window, max_sweeps)
+    return gather_targets(dmaps, origins, tgts, max_dist, window)
 
 
 def _round_up(x, m):

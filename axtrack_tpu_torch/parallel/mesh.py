@@ -55,11 +55,11 @@ gradients are all-reduced after it (``reduce_grads``).
 
 JAX's three ``*_constrain`` helpers are XLA annotations with no eager
 counterpart; their effects live here: ``dp_constrain``'s batch split is
-``shard_batch`` inside the mesh step; ``replicate_constrain``'s one
-gather of a chunk's tiles is the chunk staying on the first device
-(``train/bigmovie.py``), and ``frames_constrain``'s split of the chunk's
-preprocessing over 'data' is not done: the chunk is preprocessed on the
-first device and its batches are split in the mesh step.
+``shard_batch`` inside the mesh step; ``frames_constrain``'s split of a
+training chunk's preprocessing over 'data' and ``replicate_constrain``'s
+one gather of the chunk's tiles are ``train/bigmovie.py``'s
+``ChunkRows`` and ``assemble_chunk``, whose batches reach the mesh step
+already split over the rows (a list, ``shard_batch``'s form).
 """
 import copy
 import threading
@@ -389,11 +389,24 @@ def replicate_put(tensors, mesh):
             for dev in mesh.data_devices]
 
 
+def batch_size(batch, mesh):
+    """The global batch size of ``batch``: a tensor, or a list of the
+    parts of this process's data rows (``shard_batch``'s form, one part a
+    row, each 1 / n_data of the batch)."""
+    if isinstance(batch, list):
+        return batch[0].shape[0] * mesh.shape['data']
+    return batch.shape[0]
+
+
 def shard_batch(batch, mesh):
     """The rows of ``batch`` held by this process's data rows: a list with
     one part a row, on the row's first device. A batch whose size the
     'data' axis does not divide stays whole, on the first row (JAX's
-    ``dp_constrain`` leaves a remainder batch unsharded)."""
+    ``dp_constrain`` leaves a remainder batch unsharded). A list is a
+    batch split so already (the chunked epoch gathers each row's part on
+    the row's device) and is returned as it is."""
+    if isinstance(batch, list):
+        return batch
     B = batch.shape[0]
     if B % mesh.shape['data']:
         return [batch.to(mesh.primary)]
@@ -590,10 +603,11 @@ def mesh_forward(model, mesh, X, rows=None):
     (``CrossShardStats``; across processes too). ``rows`` (a ``MeshRows``
     the caller keeps across calls; a new one by default) runs the data
     rows. Returns the grids of this process's rows, each on its row's
-    first device, in row order."""
+    first device, in row order. ``X`` may also be split over this
+    process's rows already (a list, ``shard_batch``'s form)."""
     parts = shard_batch(X, mesh)
     rows = MeshRows() if rows is None else rows
-    split = X.shape[0] % mesh.shape['data'] == 0
+    split = batch_size(X, mesh) % mesh.shape['data'] == 0
     n_global = mesh.shape['data'] if split else 1
     group = None
     if split and mesh.processes > 1:
@@ -641,8 +655,9 @@ def mesh_loss(model, mesh, X, target, loss_fn, rows=None):
     pred = torch.cat([p.to(dev) for p in preds])
     tgt = torch.cat([t.to(dev) for t in tgts])
     loss, comps = loss_fn(pred, tgt)
-    if mesh.processes > 1 and X.shape[0] % mesh.shape['data'] == 0:
-        share = pred.shape[0] / X.shape[0]
+    B = batch_size(X, mesh)
+    if mesh.processes > 1 and B % mesh.shape['data'] == 0:
+        share = pred.shape[0] / B
         loss = loss * share
         keys = sorted(comps)
         table = torch.stack([comps[k].detach() for k in keys]) * share

@@ -34,8 +34,8 @@ from ..config import resolve_device
 from ..data.timelapse import Timelapse
 from ..models.loss import yolo_loss
 from ..models.yolo import build_model, init_weights
-from ..parallel.mesh import (MeshRows, gathered_model, mesh_loss,
-                             reduce_grads)
+from ..parallel.mesh import (MeshRows, batch_size, gathered_model,
+                             mesh_loss, reduce_grads)
 from ..utils import exact_f32
 
 
@@ -151,7 +151,7 @@ def train_step(state, X, target):
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     if state.mesh is not None:
-        reduce_grads(state.model, state.mesh, X.shape[0])
+        reduce_grads(state.model, state.mesh, batch_size(X, state.mesh))
     state.optimizer.step()
     return {k: v.detach() for k, v in comps.items()}
 
@@ -198,6 +198,26 @@ def run_epoch(state, dataset, which_dataset, P, indices):
     if len(indices) > n_full * bs and not P['DROP_LAST']:
         batches.append(indices[n_full * bs:])
     return run_batches(state, dataset, which_dataset, batches)
+
+
+def setup_data_loaders(P, dataset, rng=None):
+    """The batches of one pass over ``dataset`` (``axtrack_tpu``'s
+    ``setup_data_loaders``, reference core_functionality.py:99-107): an
+    iterator of int64 arrays of flat (timepoint, tile) indices, BATCH_SIZE
+    each, the last one short unless P['DROP_LAST'] drops it. P['SHUFFLE']
+    shuffles them with ``rng`` (a ``np.random.RandomState`` or
+    ``Generator``; numpy's global state is never drawn from). With
+    ``np.random.RandomState(s)`` the order is the JAX package's after
+    ``np.random.seed(s)``."""
+    n = len(dataset)
+    idx = np.arange(n)
+    if P['SHUFFLE']:
+        if rng is None:
+            raise ValueError('a shuffled loader needs rng=')
+        rng.shuffle(idx)
+    bs = P['BATCH_SIZE']
+    n_batches = n // bs if P['DROP_LAST'] else -(-n // bs)
+    return (idx[b * bs:(b + 1) * bs] for b in range(n_batches))
 
 
 def run_batches(state, dataset, which_dataset, batches):

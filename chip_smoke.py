@@ -148,7 +148,11 @@ Phases, each printed with its seconds:
      F1 sweep on the gathered model must have run), then deploy_run ->
      setup_inference -> inference: identities present, its K1 launches
      counted into the kernel line; (c) phase 16's chunked epoch on the
-     2x2 mesh against one device, within (a)'s bounds.
+     2x2 mesh, each chunk's frames split over its 2 data rows, against
+     one device, within (a)'s bounds: every assembled chunk must be
+     torch.equal to one device's range_tiles and each row must have built
+     its frame_slices share; it prints each row's frames by chunk and the
+     chunk preparation ms (CUDA events around assemble_chunk).
  20. evaluation, prep and rendering: (a) one line on whether matplotlib,
      PIL, pandas, ffmpeg and latex are here; (b) construct_trainingdata on
      phase 4's movie with labels from its synthetic tracks: the training
@@ -166,6 +170,17 @@ Phases, each printed with its seconds:
      its call, and phase 7's checkpoint render fails and says so, as the
      training loop lets it. Rendering is held to the JAX package on a host
      with matplotlib (tests/test_torch_port_viz.py).
+ 21. geodesic_pairwise (ops/geodesic.py) at W=1024, max_dist 500, 8
+     sweeps on phase 15's 2920x6364 mask, twice: from phase 4's first
+     frame's detections to its second's (the random weights put them off
+     this mask's channels), and between as many seeded points on the
+     channels, each target a few cells on from its source. Each call: K1
+     must launch (counted into the kernel line), the distances must be
+     torch.equal to the plain version's on the card and equal
+     native.astar_pairwise on up to 16 x 16 pairs whose sources' windows
+     K1 certifies; it prints K1's ms (CUDA events) and k1_bound_ms for the
+     sources' windows, each at the sweeps the plain version changed its
+     map in.
 
 Whether the phases pass or fail, the script then ends every process they
 started (phase 13's worker pool leaves the multiprocessing resource tracker
@@ -176,6 +191,7 @@ printing any result, without a CUDA device or without the port beside it.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import os
 import shutil
@@ -270,13 +286,16 @@ def k1_bound_ms(n_windows, W, sweeps, band_cells, continued, mask_bytes,
     (4 bytes a cell), the init maps read once when continuing, the mask's
     bitmap read once and each window's origin, source and flag; or its
     operations (per band cell and pass, counted from the kernel) at the
-    card's f32 and int32 lane rates, whichever is larger."""
+    card's f32 and int32 lane rates, whichever is larger. ``sweeps`` and
+    ``band_cells`` are numbers, or arrays of one entry a window."""
+    import numpy as np
     cells = n_windows * W * W
     bytes_ = (cells * (4 + (4 if continued else 0)) + mask_bytes
               + n_windows * (8 + 8 + 4))
-    f32 = (K1_F32_OPS_PER_CELL_PASS * 2 * sweeps + K1_CERT_F32_OPS_PER_CELL
-           ) * band_cells
-    i32 = K1_INT_OPS_PER_CELL_PASS * 2 * sweeps * band_cells
+    sweeps, band_cells = np.asarray(sweeps), np.asarray(band_cells)
+    f32 = float(np.sum((K1_F32_OPS_PER_CELL_PASS * 2 * sweeps
+                        + K1_CERT_F32_OPS_PER_CELL) * band_cells))
+    i32 = float(np.sum(K1_INT_OPS_PER_CELL_PASS * 2 * sweeps * band_cells))
     t_bytes = bytes_ / HBM_BYTES_PER_S
     t_ops = (f32 / (F32_LANES_PER_SM * N_SMS * clock_hz)
              + i32 / (INT32_LANES_PER_SM * N_SMS * clock_hz))
@@ -284,9 +303,11 @@ def k1_bound_ms(n_windows, W, sweeps, band_cells, continued, mask_bytes,
         'operations'
 
 
-def band_cells(mask_bits, row_words, origins, local, window):
+def band_cells(mask_bits, row_words, origins, local, window,
+               per_window=False):
     """Cells of the rows between each window's first and last row holding
-    a passable cell (the rows K1 sweeps), summed over the windows."""
+    a passable cell (the rows K1 sweeps), summed over the windows (or a
+    numpy array of one entry a window)."""
     import torch
     from axtrack_tpu_torch.ops import geodesic as G
     from axtrack_tpu_torch.ops import geodesic_cuda as GC
@@ -296,7 +317,31 @@ def band_cells(mask_bits, row_words, origins, local, window):
     idx = torch.arange(window, device=crops.device)
     lo = torch.where(rows, idx, window).amin(1)
     hi = torch.where(rows, idx, -1).amax(1)
-    return int((hi - lo + 1).clamp_min(0).sum()) * window
+    cells = (hi - lo + 1).clamp_min(0) * window
+    return cells.cpu().numpy() if per_window else int(cells.sum())
+
+
+def plain_sweeps(G, crops, local, max_sweeps):
+    """The sweeps the plain version's loop (``chamfer_plain``: at most
+    ``max_sweeps``, ending at the fixpoint) changed each window's map in:
+    the sweeps each window needs. An int numpy array, one entry a
+    window."""
+    import torch
+    passable = crops.to(torch.bool)
+    N, W, _ = passable.shape
+    d = torch.full((N, W, W), G.INF_I, dtype=torch.int64,
+                   device=passable.device)
+    n, ly, lx = G._inside(local.to(passable.device), W)
+    d[n, ly, lx] = 0
+    need = torch.zeros(N, dtype=torch.int64, device=passable.device)
+    for sweep in range(1, max_sweeps + 1):
+        before = d.clone()
+        G._sweep(d, passable)
+        changed = (before != d).flatten(1).any(1)
+        if not bool(changed.any()):
+            break
+        need[changed] = sweep
+    return need.cpu().numpy()
 
 
 def mask_families(H, W, rng):
@@ -1914,6 +1959,48 @@ def sgd_state(P, sd, torch, mesh=None):
     return distribute_state(state, mesh) if mesh is not None else state
 
 
+class SplitRecorder:
+    """Phase 19(c)'s record of a split chunked epoch, while entered: the
+    frame slices ``range_tiles`` built for each chunk (on the rows'
+    threads), whether every assembled copy of the chunk is torch.equal to
+    one device's ``range_tiles``, and the chunk's preparation ms (CUDA
+    events around ``assemble_chunk``)."""
+
+    def __init__(self, torch):
+        from axtrack_tpu_torch.data.timelapse import Timelapse
+        from axtrack_tpu_torch.train import bigmovie
+        calls, self.chunks = [], []
+        range_tiles, assemble = Timelapse.range_tiles, bigmovie.assemble_chunk
+
+        def recorded(ds, lo, hi, copied=None, device=None):
+            calls.append((lo, hi))
+            return range_tiles(ds, lo, hi, copied, device)
+
+        def assemble_chunk(cr, lo, hi, copied):
+            start = len(calls)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            tiles = assemble(cr, lo, hi, copied)
+            ev[1].record()
+            whole = range_tiles(cr.dataset, lo, hi)
+            self.chunks.append(dict(
+                lo=lo, hi=hi, built=sorted(calls[start:]), ev=ev,
+                equal=all(torch.equal(t, whole) for t in tiles.values())))
+            return tiles
+        self.patches = ((Timelapse, 'range_tiles', recorded, range_tiles),
+                        (bigmovie, 'assemble_chunk', assemble_chunk,
+                         assemble))
+
+    def __enter__(self):
+        for obj, name, fn, _ in self.patches:
+            setattr(obj, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, _, fn in self.patches:
+            setattr(obj, name, fn)
+
+
 def mesh_close(got, want, torch, np, what):
     """Phase 19's bounds: per-step losses (dicts of the engine's epoch
     components) and the single-device state dicts of two runs."""
@@ -2050,19 +2137,32 @@ def mesh_training_phase(P, workdir, GC, torch, np):
                                         chunk_budget=3 * per_frame)
             if len(plan[0]) < 2:
                 raise SystemExit('phase 19: the chunked epoch has one chunk')
-            runs = []
+            runs, rec = [], SplitRecorder(torch)     # the mesh's chunks
             for shape in ((2, 2), None):
                 state = sgd_state(P2, sd, torch, shape and mesh(shape))
-                runs.append((bigmovie.run_epoch_chunked(
-                    state, staged, 'train', P2, plan=plan), state))
+                with rec if shape else contextlib.nullcontext():
+                    runs.append((bigmovie.run_epoch_chunked(
+                        state, staged, 'train', P2, plan=plan), state))
             torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = cudnn_det
     rel, worst = mesh_close(*runs, torch, np, 'the chunked epoch on 2x2')
+    chunks = rec.chunks
+    ms = [c['ev'][0].elapsed_time(c['ev'][1]) for c in chunks]
     print(f'(c) chunked epoch ({len(plan[0])} chunks, '
-          f'{len(runs[0][0]["total_summed_loss"])} steps) on the 2x2 mesh: '
-          f'losses largest relative difference {rel:.3g}, parameters '
-          f'largest difference {worst:.3g}')
+          f'{len(runs[0][0]["total_summed_loss"])} steps) on the 2x2 mesh, '
+          f'each chunk\'s frames split over its 2 data rows: frames a row by '
+          f'chunk {[[b - a for a, b in c["built"]] for c in chunks]}; chunk '
+          f'preparation ms (CUDA events) {[round(x, 3) for x in ms]}; '
+          f'assembled == one device\'s range_tiles: '
+          f'{[c["equal"] for c in chunks]}; losses largest relative '
+          f'difference {rel:.3g}, parameters largest difference {worst:.3g}')
+    slices = [[s for s in bigmovie.frame_slices(ch['lo'], ch['hi'], 2)
+               if s[1] > s[0]] for ch in plan[0]]
+    if ([c['built'] for c in chunks] != slices
+            or not all(c['equal'] for c in chunks)):
+        raise SystemExit('phase 19: the split chunks differ from one '
+                         "device's or were not built by their rows")
     del runs, staged
     torch.cuda.empty_cache()
     return launches
@@ -2256,6 +2356,133 @@ def evaluation_phase(P, workdir, GC, torch, np, dev='cuda'):
         raise SystemExit("phase 20: the trace does not name K1's kernel")
     print('(g) renders: none on the card (no matplotlib here)')
     print(f'phase 20: {time.perf_counter() - t_phase:.3f} s')
+    return launches
+
+
+# phase 21: geodesic_pairwise at the deployed movie's size (phase 15's
+# synthetic 2920x6364 mask), K1's widest window, the association radius;
+# and how many certified sources and targets are held to the A* oracle
+PAIRWISE = dict(window=1024, max_dist=500, max_sweeps=8)
+PAIRWISE_ORACLE_PAIRS = (16, 16)
+
+
+def channel_points(mask, np, n, seed):
+    """``n`` sources on the mask's passable cells (seeded) and for each a
+    target 1-40 passable cells further in row-major order, mostly a few
+    pixels on along the same channel: where a trained detector's
+    detections lie in two consecutive frames."""
+    ys, xs = np.nonzero(mask)
+    rng = np.random.default_rng(seed)
+    i = rng.choice(len(ys) - 40, n, replace=False)
+    j = i + rng.integers(1, 41, n)
+    return np.stack([ys[i], xs[i]], -1), np.stack([ys[j], xs[j]], -1)
+
+
+def pairwise_phase(workdir, ref4, torch, np, G, GC):
+    """Phase 21: geodesic_pairwise on phase 15's mask, from one frame's
+    detections of phase 4 to the next frame's (random weights put them off
+    this mask's channels), and between as many points on the channels
+    (``channel_points``). Each call: K1 launched (counted into the kernel
+    line), bit-equal to the plain version on the card, and equal to
+    native.astar_pairwise on pairs whose windows K1 certifies. Returns
+    K1's launches."""
+    mask = np.load(os.path.join(workdir, 'deployed_mask.npy'))
+    dets = [np.stack([d['anchor_y'], d['anchor_x']], -1).astype(np.int64)
+            for d in ref4._detections[:2]]
+    cases = {'detections': dets,
+             'channel points': channel_points(mask, np, len(dets[0]), 0)}
+    launches = {'K1 chamfer': 0, 'K1 bands': 0}
+    for name, (src, tgt) in cases.items():
+        for k, v in pairwise_check(name, mask, src, tgt, torch, np, G,
+                                   GC).items():
+            launches[k] += v
+    return launches
+
+
+def pairwise_check(name, mask, src, tgt, torch, np, G, GC):
+    """One phase-21 call of geodesic_pairwise(mask, src, tgt), its gates
+    and its line. Returns its K1 launches."""
+    from axtrack_tpu_torch import native
+    H, W = mask.shape
+    kw = PAIRWISE
+    window = kw['window']
+    GC.chamfer_kernel.launches = 0          # count this call only
+    GC.chamfer_bands_kernel.launches = 0
+    GC.chamfer_kernel.events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D = G.geodesic_pairwise(mask, src, tgt, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {'K1 chamfer': GC.chamfer_kernel.launches,
+                'K1 bands': GC.chamfer_bands_kernel.launches}
+    k1_ms = sum(a.elapsed_time(b) for a, b in GC.chamfer_kernel.events)
+    GC.chamfer_kernel.events = None
+    if min(launches.values()) == 0 or tuple(D.shape) != (len(src), len(tgt)):
+        raise SystemExit(f'phase 21: geodesic_pairwise of the {name} gave '
+                         f'{tuple(D.shape)} with launches {launches}')
+    # the plain version on the card, on the same padded mask and windows
+    m = torch.from_numpy(mask).cuda()
+    padded = torch.nn.functional.pad(m, (0, max(window - W, 0), 0,
+                                         max(window - H, 0)))
+    s_dev = torch.from_numpy(src).cuda()
+    t_dev = torch.from_numpy(tgt).cuda()
+    t1 = time.perf_counter()
+    maps, origins = G._batched_windows(padded, s_dev, window,
+                                       kw['max_sweeps'])
+    plain = G.gather_targets(maps, origins, t_dev, kw['max_dist'], window)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    del maps
+    equal = torch.equal(D, plain)
+    # the certificate flags of K1's windows (the sources padded to their
+    # bucket; the padding's windows are not the function's work), and the
+    # bound of this call: the N sources' windows, each at the sweeps the
+    # plain version changed its map in
+    N, Np, origins, local = GC._pad_srcs(padded, s_dev, window)
+    bits, row_words = GC.pack_mask(padded)
+    _, ok = GC.chamfer_windows(bits, row_words, origins, local, window,
+                               kw['max_sweeps'])
+    ok = ok[:N].cpu().numpy() == 1
+    origins, local = origins[:N], local[:N]
+    cells = band_cells(bits, row_words, origins, local, window,
+                       per_window=True)
+    sweeps = plain_sweeps(G, G.crops_for(padded, origins.long(),
+                                         local.long(), window),
+                          local, kw['max_sweeps'])
+    bound_ms, bound_by = k1_bound_ms(N, window, sweeps, cells, False,
+                                     bits.numel() * 4, sm_clock_hz())
+    # the A* oracle on certified sources inside the frame
+    def inside(p):
+        return ((p >= 0) & (p < (H, W))).all(1)
+    n_s, n_t = PAIRWISE_ORACLE_PAIRS
+    si = np.nonzero(ok & inside(src))[0][:n_s]
+    ti = np.nonzero(inside(tgt))[0][:n_t]
+    wts = np.where(mask, 1.0, 2.0 ** 16).astype(np.float32)
+    want = native.astar_pairwise(wts, src[si], tgt[ti],
+                                 kw['max_dist']).astype(np.float32)
+    want[want < 0] = kw['max_dist']
+    got = D.cpu().numpy()[np.ix_(si, ti)]
+    oracle = np.array_equal(got, want)
+    D = D.cpu().numpy()
+    print(f'(a) geodesic_pairwise of the {name}, {len(src)} x {len(tgt)} '
+          f'on the {H}x{W} mask ({int(mask[tuple(src[inside(src)].T)].sum())}'
+          f' sources on passable cells) at W={window}, max_dist '
+          f'{kw["max_dist"]}, {kw["max_sweeps"]} sweeps: {seconds:.3f} s; '
+          f'K1 {k1_ms:.3f} ms (CUDA events) in {launches} launches over '
+          f'{Np} windows ({N} sources, {cells.sum() / window / N:.1f} band '
+          f'rows a source window; the plain version changed the maps in '
+          f'{sweeps.min()}-{sweeps.max()} sweeps, mean {sweeps.mean():.2f}'
+          f'), k1_bound_ms {bound_ms:.4f} ({bound_by}) for the {N} windows '
+          f'at those sweeps, {100 * bound_ms / k1_ms:.1f}% of the bound; '
+          f'plain version on the card {plain_ms:.3f} ms (host clock); '
+          f'equal={equal}; {int(ok.sum())} of {N} windows certified; '
+          f'{int((D < kw["max_dist"]).sum())} pairs within the cap; A* '
+          f'oracle on {len(si)} x {len(ti)} certified pairs equal={oracle} '
+          f'({int((got < kw["max_dist"]).sum())} within the cap)')
+    if not (equal and oracle and len(si) and len(ti)):
+        raise SystemExit(f'phase 21: geodesic_pairwise of the {name} differs '
+                         'from the plain version or the A* oracle')
     return launches
 
 
@@ -2472,6 +2699,13 @@ def run():
                    'trainingdata, get_all_epoch_data, evaluate_model IDed, '
                    'update_MCF_params, device_trace')
         for kname, n in evaluation_phase(P, workdir, GC, torch, np).items():
+            launches[kname] += n
+        done(t0)
+
+        t0 = phase('21. geodesic_pairwise at W=1024 on the deployed-size '
+                   'mask (K1 vs plain and the A* oracle)')
+        for kname, n in pairwise_phase(workdir, ref4, torch, np, G,
+                                       GC).items():
             launches[kname] += n
         done(t0)
     finally:

@@ -473,3 +473,72 @@ def test_evaluate_model_launches_k1_on_the_card(dev, tmp_path, monkeypatch):
     for a, b in zip(ax._detections, ref._detections):
         for k in a:
             np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_geodesic_pairwise_on_the_card_launches_k1(dev):
+    """geodesic_pairwise at W=1024 on a 512 x 1024 channel mask: K1
+    launches, and the distances equal the plain version's on the CPU
+    exactly (integer node counts); a window above K1's 1024 raises its
+    ValueError instead of falling back to the plain version."""
+    from axtrack_tpu_torch.data.synthetic import make_channel_mask
+    mask, _ = make_channel_mask(512, 1024, n_channels=4)
+    rng = np.random.default_rng(0)
+    ys, xs = np.nonzero(mask)
+    pick = rng.choice(len(ys), 24, replace=False)
+    pts = np.stack([ys[pick], xs[pick]], -1)
+    GC.chamfer_kernel.launches = 0
+    got = G.geodesic_pairwise(mask, pts[:8], pts[8:], window=1024,
+                              device=dev)
+    assert GC.chamfer_kernel.launches >= 1 and got.is_cuda
+    want = G.geodesic_pairwise(mask, pts[:8], pts[8:], window=1024,
+                               device='cpu')
+    assert torch.equal(got.cpu(), want) and (want < 500).any()
+    wide = np.ones((8, 2048), bool)
+    with pytest.raises(ValueError, match='at most 1024'):
+        G.geodesic_pairwise(wide, [[0, 0]], [[0, 5]], window=2048,
+                            device=dev)
+
+
+def test_k1_from_threads_at_different_blocks_an_sm(dev):
+    """Host threads launching K1 at once (the shards of a mesh, an eager
+    association) with inputs for which it picks different blocks an SM,
+    hence different shared memory a block: every launch succeeds and
+    equals the plain version. The kernel's shared-memory limit is shared
+    by the threads, so one thread's smaller limit must not fail another's
+    launch."""
+    import threading
+    W, n_sms = 64, torch.cuda.get_device_properties(dev).multi_processor_count
+    m = torch.ones((256, 256), dtype=torch.bool, device=dev)
+    bits, row_words = GC.pack_mask(m)
+    rng = np.random.default_rng(0)
+    cases = []
+    for n in (1, 8 * n_sms + 44):          # one block an SM, then four
+        srcs = torch.from_numpy(rng.integers(0, 256, (n, 2))).to(dev)
+        origins, local = G.window_origins(srcs, W, 256, 256)
+        origins, local = origins.int().contiguous(), local.int().contiguous()
+        bands = GC.chamfer_bands_kernel(bits, row_words, origins, local, W)
+        k = GC.blocks_per_sm(bands, GC.default_warps_per_window(W), n_sms)
+        want = GC.chamfer_windows_plain(bits, row_words, origins, local, W, 1)
+        cases.append((origins, local, want, k))
+    assert [c[3] for c in cases] == [1, 4]
+    errors, done = [], [0] * 8
+
+    def launch(t):
+        try:
+            for i in range(150):
+                origins, local, want, _ = cases[(i + t) % 2]
+                got = GC.chamfer_windows(bits, row_words, origins, local, W,
+                                         1)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    errors.append(f'thread {t}, launch {i}: differs')
+                done[t] += 1
+        except Exception as e:     # noqa: BLE001 (reported below)
+            errors.append(f'thread {t}: {e!r}')
+    threads = [threading.Thread(target=launch, args=(t,)) for t in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[:3]
+    assert done == [150] * 8
