@@ -6,14 +6,12 @@ inference -> IDed_dets_all -> visualize_inference, on the example movie
     python examples/run_example_torch.py                    # on the GPU
     AXTRACK_DEVICE=cpu python examples/run_example_torch.py # on the CPU
 
-The deployed bundle's trained weights are the JAX package's orbax
-checkpoint, which the port does not read: the detector takes the bundle's
-``E*.pt`` (``deploy_run``) or the reference's ``E*.pth`` when the bundle
-has one, else seeded random weights (``init_seed=0``), whose detections
-are not meaningful. The distribution plot and the render need matplotlib;
+The detector serves the deployed bundle's trained weights, as
+``examples/run_example.py`` does: ``setup_inference`` reads the bundle's
+checkpoint (``deployed_model/E0300``, the JAX package's orbax directory,
+read without JAX). The distribution plot and the render need matplotlib;
 without it the flow runs and says what it did not draw.
 """
-import glob
 import importlib.util
 import os
 import sys
@@ -21,6 +19,7 @@ import sys
 sys.path.insert(0, os.path.abspath(os.path.dirname(__file__) + '/..'))
 import axtrack_tpu_torch as axtrack  # noqa: E402
 from axtrack_tpu_torch.data.synthetic import ensure_example_fixture  # noqa: E402,E501
+from axtrack_tpu_torch.train.checkpoint import checkpoint_file  # noqa: E402
 
 
 def main():
@@ -31,11 +30,9 @@ def main():
     ensure_example_fixture(inference_data_dir)
     can_draw = importlib.util.find_spec('matplotlib') is not None
 
-    trained = glob.glob(f'{axtrack.DEPLOYED_MODEL_DIR}/E*.pt*')
-    parameters, model, stnd_scaler = axtrack.setup_inference(
-        dest_dir, **({} if trained else {'init_seed': 0}))
+    parameters, model, stnd_scaler = axtrack.setup_inference(dest_dir)
     print(f"device {parameters['DEVICE']}; weights: "
-          f"{trained[0] if trained else 'seeded random (init_seed=0)'}")
+          f"{checkpoint_file(axtrack.DEPLOYED_MODEL_DIR)}")
 
     # adjust because the example movie is short (20 frames)
     parameters.update({'MCF_MAX_FLOW': 140, 'MCF_MIN_FLOW': 2})

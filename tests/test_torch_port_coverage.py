@@ -66,8 +66,7 @@ JAX_ONLY = {
         "is train/bigmovie.py's assemble_chunk"},
     'train/bigmovie.py': {'_get_chunk_prog': JIT},
     'train/checkpoint.py': {
-        '_to_numpy_tree': 'an orbax restore template',
-        '_restore': 'an orbax restore; the port writes and reads E*.pt'},
+        '_to_numpy_tree': 'an orbax restore template'},
     'train/engine.py': {
         'make_train_step': 'the jitted train and eval steps; the port has '
         'train_step and eval_step',
@@ -100,6 +99,7 @@ PORTED_AS = {
         'torch_state_dict_to_flax': 'load_torch_checkpoint',
         'read_pth': 'load_torch_checkpoint'},
     'models/yolo.py': {'_backbone': 'YOLOAxTrack'},
+    'train/checkpoint.py': {'_restore': 'read_orbax'},
 }
 
 MODULES = sorted(os.path.relpath(p, JAX_PKG) for p in glob.glob(

@@ -1,7 +1,8 @@
 """The port on the GPU: kernel K1 against its plain version, the
 training path's device code, the auction tracker, the mixed-precision
 detector and the backbone detectors against the CPU, and the mesh step on
-logical shards of the card against one device.
+logical shards of the card against one device, and the bundle's trained
+weights on the card against the CPU.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a) and are marked ``cuda``;
 on a machine without one they skip. Run them on the card with
@@ -542,3 +543,17 @@ def test_k1_from_threads_at_different_blocks_an_sm(dev):
         t.join()
     assert not errors, errors[:3]
     assert done == [150] * 8
+
+
+def test_trained_bundle_on_the_card_equals_cpu(dev, tmp_path):
+    """setup_inference with neither weights= nor init_seed= serves the
+    bundle's trained E0300 (read without JAX) on the card; on an 8-frame
+    1024x1536 cut of the example movie its detections, distances and
+    identities equal the CPU's by phase 6's rules
+    (``chip_smoke.trained_gpu_vs_cpu``: x/y exact, conf within 1e-5 with
+    the ambiguous cells left out, shared distances exact)."""
+    from chip_smoke import trained_gpu_vs_cpu
+    GC.chamfer_kernel.launches = 0
+    same, line = trained_gpu_vs_cpu(str(tmp_path), torch, np, dev=str(dev))
+    assert same, line
+    assert GC.chamfer_kernel.launches >= 1
