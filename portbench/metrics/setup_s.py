@@ -1,0 +1,6 @@
+"""setup_s: seconds from the process's start to the window's first call
+(host clock)."""
+
+
+def read(rec):
+    return rec['setup_s']
