@@ -44,6 +44,7 @@ from ..config import resolve_device
 from ..ops import preproc as P
 from ..ops import tiling as TL
 from ..ops.targets import read_labels_csv, flat_labels, labels_to_yolo_grid
+from ..utils import profiling
 from .augment import (draw_transform_config, config_to_transform_params,
                       transform_frames, transform_anchors)
 from .augment import apply_transformations  # noqa: F401 (re-export)
@@ -93,7 +94,7 @@ class ChunkCopier:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-            out = host.to(self.device, non_blocking=True)
+            out = profiling.to_device(host, self.device, non_blocking=True)
             ev[1].record()
         self.events.append(ev)
         return out
@@ -108,7 +109,7 @@ class ChunkCopier:
     def seconds(self):
         if not self.events:
             return 0.0
-        torch.cuda.synchronize(self.device)
+        profiling.to_host(self.device)
         return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
 
 
@@ -631,7 +632,7 @@ class Timelapse:
         return (tiles > 0).any(dim=3).any(dim=2).cpu().numpy()
 
     def _kept(self, device=None):
-        return torch.as_tensor(self._tile_flat_idx, device=(
+        return profiling.to_device(self._tile_flat_idx, (
             self.device if device is None else device)).long()
 
     def _staged_range_tiles(self, lo, hi, raw=None, device=None):
@@ -754,70 +755,74 @@ class Timelapse:
         tile_info: numpy f32[ny, nx, T_all, 2] of (tile non-empty, positive
         labels in it); a staged movie's non-empty column is its
         untransformed table, as in the JAX package."""
-        wants_clean = force_no_transformation or not self.transform_configs
-        self.ensure_resident_u16()
-        built = (self.X_tiled is not None
-                 or (self._u16_staged and self._tile_flat_idx is not None))
-        if wants_clean and built and getattr(self, '_tiles_clean', False):
-            return
-        self._tiles_clean = wants_clean
-        anchor_y, anchor_x = self.target['anchor_y'], self.target['anchor_x']
-        self.last_transform_configs = None
-        dy = dx = 0
-        flip_y = flip_x = False
-        angle = None
-        if self.transform_configs and not force_no_transformation:
-            cfg = draw_transform_config(self.transform_configs, self._rng)
-            dy, dx, flip_y, flip_x, angle = config_to_transform_params(cfg)
-            anchor_y, anchor_x = transform_anchors(
-                anchor_y, anchor_x, angle, flip_y, flip_x, dy, dx,
-                self.sizey, self.sizex)
-            self.last_transform_configs = cfg
-            print(f'New transform config set: {cfg}')
-        print(f'Tiling {self.name} data...', end='', flush=True)
-        ts = self.tilesize
-        T_all = self.X.shape[0]
-        transform = dict(dy=int(dy), dx=int(dx), flip_y=bool(flip_y),
-                         flip_x=bool(flip_x), angle=float(angle or 0.0))
-        self._chunk_epoch = None
-        self.X_tiled = None
-        if self._u16_staged:
-            keep = self._staged_keep(**transform)
-            if not keep.any():
-                keep[0, 0] = True
-            self._tile_flat_idx, self._tile_yx = TL.tile_index_table(keep)
-            self._chunk_epoch = transform
-            non_empty = torch.from_numpy(self._nonempty_table).to(self.device)
-        elif self._on_host:
-            non_empty = self._tile_host_movie(transform)
-        else:
-            tiles = TL.tile_frames(transform_frames(self.X, **transform), ts)
-            non_empty = (tiles > 0).any(dim=4).any(dim=3)     # [T, ny, nx]
-            keep = non_empty.any(dim=0).cpu().numpy()
-            if not keep.any():
-                keep[0, 0] = True                    # degenerate all-empty
-            self._tile_flat_idx, self._tile_yx = TL.tile_index_table(keep)
-            self.X_tiled = self._kept_channels(
-                tiles.reshape(T_all, self.ytiles * self.xtiles, ts, ts),
-                self.p_motion_seq, self.n_motion_seq)
-            del tiles
-        kept = self._kept()
+        with profiling.span('tiling'):
+            wants_clean = force_no_transformation or not self.transform_configs
+            self.ensure_resident_u16()
+            built = (self.X_tiled is not None
+                     or (self._u16_staged and self._tile_flat_idx is not None))
+            if wants_clean and built and getattr(self, '_tiles_clean', False):
+                return
+            self._tiles_clean = wants_clean
+            anchor_y = self.target['anchor_y']
+            anchor_x = self.target['anchor_x']
+            self.last_transform_configs = None
+            dy = dx = 0
+            flip_y = flip_x = False
+            angle = None
+            if self.transform_configs and not force_no_transformation:
+                cfg = draw_transform_config(self.transform_configs, self._rng)
+                dy, dx, flip_y, flip_x, angle = config_to_transform_params(cfg)
+                anchor_y, anchor_x = transform_anchors(
+                    anchor_y, anchor_x, angle, flip_y, flip_x, dy, dx,
+                    self.sizey, self.sizex)
+                self.last_transform_configs = cfg
+                print(f'New transform config set: {cfg}')
+            print(f'Tiling {self.name} data...', end='', flush=True)
+            ts = self.tilesize
+            T_all = self.X.shape[0]
+            transform = dict(dy=int(dy), dx=int(dx), flip_y=bool(flip_y),
+                             flip_x=bool(flip_x), angle=float(angle or 0.0))
+            self._chunk_epoch = None
+            self.X_tiled = None
+            if self._u16_staged:
+                keep = self._staged_keep(**transform)
+                if not keep.any():
+                    keep[0, 0] = True
+                self._tile_flat_idx, self._tile_yx = TL.tile_index_table(keep)
+                self._chunk_epoch = transform
+                non_empty = profiling.to_device(self._nonempty_table,
+                                                self.device)
+            elif self._on_host:
+                non_empty = self._tile_host_movie(transform)
+            else:
+                tiles = TL.tile_frames(transform_frames(self.X, **transform),
+                                       ts)
+                non_empty = (tiles > 0).any(dim=4).any(dim=3)  # [T, ny, nx]
+                keep = profiling.to_host(non_empty.any(dim=0)).numpy()
+                if not keep.any():
+                    keep[0, 0] = True                    # degenerate all-empty
+                self._tile_flat_idx, self._tile_yx = TL.tile_index_table(keep)
+                self.X_tiled = self._kept_channels(
+                    tiles.reshape(T_all, self.ytiles * self.xtiles, ts, ts),
+                    self.p_motion_seq, self.n_motion_seq)
+                del tiles
+            kept = self._kept()
 
-        grid = labels_to_yolo_grid(
-            *flat_labels(anchor_y, anchor_x), ny=self.ytiles, nx=self.xtiles,
-            Sy=self.Sy, Sx=self.Sx, tilesize=ts, n_frames=T_all,
-            device=self.device)
-        grid = grid.reshape(T_all, self.ytiles * self.xtiles, self.Sx,
-                            self.Sy, 4)
-        self.target_tiled = grid[:, kept]
-        # tile_info [ny, nx, T_all, 2] (Timelapse.py:551-553)
-        npos = torch.zeros((T_all, self.ytiles * self.xtiles),
-                           device=self.device)
-        npos[:, kept] = self.target_tiled[..., 0].sum((-1, -2))
-        info = torch.stack([non_empty.to(torch.float32),
-                            npos.reshape(non_empty.shape)], -1)
-        self.tile_info = info.movedim(0, 2).cpu().numpy()
-        print('Done.', flush=True)
+            grid = labels_to_yolo_grid(
+                *flat_labels(anchor_y, anchor_x), ny=self.ytiles,
+                nx=self.xtiles, Sy=self.Sy, Sx=self.Sx, tilesize=ts,
+                n_frames=T_all, device=self.device)
+            grid = grid.reshape(T_all, self.ytiles * self.xtiles, self.Sx,
+                                self.Sy, 4)
+            self.target_tiled = grid[:, kept]
+            # tile_info [ny, nx, T_all, 2] (Timelapse.py:551-553)
+            npos = torch.zeros((T_all, self.ytiles * self.xtiles),
+                               device=self.device)
+            npos[:, kept] = self.target_tiled[..., 0].sum((-1, -2))
+            info = torch.stack([non_empty.to(torch.float32),
+                                npos.reshape(non_empty.shape)], -1)
+            self.tile_info = profiling.to_host(info.movedim(0, 2)).numpy()
+            print('Done.', flush=True)
 
     def _kept_channels(self, flat, pmotion, nmotion):
         """Kept tiles of f32[n, ny*nx, ts, ts] frame tiles; in the motion

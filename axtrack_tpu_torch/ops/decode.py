@@ -11,6 +11,8 @@ order); NMS compares integer squared distances with ceil(r^2), so
 """
 import torch
 
+from ..utils import profiling
+
 
 def decode_tiled(grids, tile_yx, conf_thr, tilesize, max_dets=512):
     """Decode tiled YOLO grids into frame-coordinate detections.
@@ -34,7 +36,7 @@ def decode_tiled(grids, tile_yx, conf_thr, tilesize, max_dets=512):
     gy = torch.arange(Sy, device=dev, dtype=torch.float32)[None, :]
     x = torch.round((grids[..., 1] + gx) * (tilesize / Sx))
     y = torch.round((grids[..., 2] + gy) * (tilesize / Sy))
-    tyx = torch.as_tensor(tile_yx, device=dev).to(torch.int32)
+    tyx = profiling.to_device(tile_yx, dev).to(torch.int32)
     x = x + (tyx[:, 1] * tilesize)[:, None, None]
     y = y + (tyx[:, 0] * tilesize)[:, None, None]
     ids = grids[..., 3] if C > 3 else torch.zeros_like(conf)
@@ -80,7 +82,7 @@ def distance_nms(conf, x, y, valid, radius):
     for _ in range(n):
         killed = (may_kill & alive[..., :, None]).any(dim=-2)
         new = valid & ~killed
-        if torch.equal(new, alive):
+        if bool(profiling.to_host((new == alive).all())):
             break
         alive = new
     return alive

@@ -21,6 +21,7 @@ This module is the reference the CUDA kernel (``geodesic_cuda.py``,
 import torch
 
 from ..config import resolve_device
+from ..utils import profiling
 
 INF = 1e9
 INF_I = 1_000_000_000
@@ -166,8 +167,8 @@ def gather_targets(dmaps, origins, tgts_yx, max_dist, window):
     steps = dmaps[n, ly.clamp(0, window - 1), lx.clamp(0, window - 1)]
     nodecount = steps + 1.0
     ok = inside & (nodecount <= max_dist)
-    return torch.where(ok, nodecount, torch.tensor(
-        max_dist, dtype=torch.float32, device=dmaps.device))
+    return torch.where(ok, nodecount, profiling.to_device(
+        max_dist, dmaps.device, dtype=torch.float32))
 
 
 def geodesic_pairwise(mask, sources_yx, targets_yx, max_dist=500,

@@ -26,6 +26,7 @@ import warnings
 import torch
 
 from .geodesic import INF, window_origins, crops_for, chamfer_plain
+from ..utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, 'csrc', 'chamfer.cu')
@@ -102,7 +103,8 @@ def blocks_per_sm(bands, warps_per_window, n_sms):
     longer than the longest band (the windows start longest first). One
     small device-to-host copy."""
     rows = (bands[:, 1] - bands[:, 0] + 1).clamp_min(0)
-    longest, total = torch.stack([rows.max(), rows.sum()]).tolist()
+    longest, total = profiling.to_host(
+        torch.stack([rows.max(), rows.sum()])).tolist()
     per_block = 4 // warps_per_window
     for k in (1, 2):
         if total <= longest * n_sms * k * per_block:
@@ -403,7 +405,7 @@ def batched_windows_converged(passable_padded, srcs_yx, window,
         passable_padded, srcs_yx, window, max_sweeps=max_sweeps, bits=bits)
     total = max_sweeps
     while True:
-        if bool(converged):
+        if bool(profiling.to_host(converged)):
             return dmaps, origins
         if total >= max_total_sweeps:
             warnings.warn(

@@ -53,7 +53,7 @@ from ..ops import geodesic_cuda as GC
 from ..ops import preproc as PP
 from ..ops import tiling as TL
 from ..ops.decode import decode_tiled, distance_nms
-from ..utils import exact_f32
+from ..utils import exact_f32, profiling
 
 
 def shard_blocks(n_items, n_dev):
@@ -86,8 +86,8 @@ class FrameSource:
         """Frames E[a:b] on ``device``."""
         v0 = min(max(a, -self.offset), b)
         v1 = max(min(b, self.hi - self.offset), v0)
-        body = self.x[self.offset + v0:self.offset + v1].to(
-            device, non_blocking=True)
+        body = profiling.to_device(self.x[self.offset + v0:self.offset + v1],
+                                   device, non_blocking=True)
         if v0 == a and v1 == b:
             return body
 
@@ -123,7 +123,7 @@ def group_stds(source, groups, n_real, tc, dev, end=None):
         with device_lock(dev):
             _, std, _ = PP.nonzero_stats(PP.u16_to_float(
                 source.read(a, b, dev)))
-            out.append(std.cpu())
+            out.append(profiling.to_host(std))
     return torch.cat(out)
 
 
@@ -139,7 +139,7 @@ def block_grids(model, params, source, groups, dev, flat_idx, preprocess):
     if not groups:
         return None
     tc, ts = params['TEMPORAL_CONTEXT'], params['TILESIZE']
-    kept = torch.as_tensor(np.asarray(flat_idx), device=dev).long()
+    kept = profiling.to_device(np.asarray(flat_idx), dev).long()
     module = isinstance(model, torch.nn.Module)
     out = []
     for group in groups:
@@ -225,9 +225,10 @@ def decode_block(grids, tile_yx, params, conf_thr, max_dets):
                        max_dets=max_dets)
     alive = distance_nms(dec['conf'], dec['x'], dec['y'], dec['valid'],
                          params['NON_MAX_SUPRESSION_DIST'])
-    return (torch.stack([dec['conf'], dec['x'], dec['y'],
-                         alive.to(torch.float32)]).cpu().numpy(),
-            dec['valid'].sum(-1).cpu().numpy())
+    packed = torch.stack([dec['conf'], dec['x'], dec['y'],
+                          alive.to(torch.float32)])
+    return (profiling.to_host(packed).numpy(),
+            profiling.to_host(dec['valid'].sum(-1)).numpy())
 
 
 def decode_shards(mesh, grids, tile_yx, params, conf_thr, max_dets):

@@ -71,6 +71,7 @@ import torch
 from torch import nn
 
 from ..models.yolo import BATCH_NORM_SYNC, SeededDropout, dtype_linear
+from ..utils import profiling
 
 
 class Mesh:
@@ -164,22 +165,26 @@ class DeviceThread(threading.Thread):
     made. The stream is synchronized before the thread lets go of ``fn``
     and its arguments, so no tensor the thread used goes back to the
     caching allocator while the stream still reads it. ``result()`` joins
-    and returns ``fn``'s result, or raises its exception."""
+    and returns ``fn``'s result, or raises its exception. ``trace``: the
+    trace record (and parent span) the thread records into
+    (``utils/profiling.current()``); by default the launching thread's at
+    the time the thread is made."""
 
-    def __init__(self, fn, device, *args, stream=None):
+    def __init__(self, fn, device, *args, stream=None, trace=None):
         super().__init__()
         self.device = torch.device(device)
         self._fn, self._args = fn, args
         self._result = self._error = None
         self._ready = None
         self._stream = stream
+        self._trace = profiling.current() if trace is None else trace
         if self.device.type == 'cuda':
             self._ready = torch.cuda.Event()
             self._ready.record(torch.cuda.current_stream(self.device))
 
     def run(self):
         try:
-            with torch.no_grad():
+            with torch.no_grad(), profiling.attach(self._trace):
                 if self._ready is None:
                     self._result = self._fn(*self._args)
                     return
@@ -191,7 +196,7 @@ class DeviceThread(threading.Thread):
                         with torch.cuda.stream(stream):
                             self._result = self._fn(*self._args)
                     finally:
-                        stream.synchronize()
+                        profiling.to_host(stream)
         except BaseException as e:          # re-raised by result()
             self._error = e
         finally:
@@ -501,9 +506,9 @@ class MeshRows:
 
     def run(self, fn, devices, abort=None):
         """``fn(i)`` for each data row i at once, each row's thread in the
-        caller's grad mode, inside its row's card and on the caller's
-        current stream of it (no sync: the caller's later work on that
-        stream comes after). Waits for all rows, then returns their
+        caller's grad mode and trace record, inside its row's card and on
+        the caller's current stream of it (no sync: the caller's later work
+        on that stream comes after). Waits for all rows, then returns their
         results in row order, or raises the first failing row's exception
         (a row released by ``abort``, called as soon as a row fails, only
         if no other row failed)."""
@@ -515,12 +520,13 @@ class MeshRows:
             self._pool = ThreadPoolExecutor(self._workers,
                                             thread_name_prefix='mesh-row')
         grad = torch.is_grad_enabled()
+        trace = profiling.current()
         streams = [torch.cuda.current_stream(d) if d.type == 'cuda' else None
                    for d in devices]
 
         def body(i):
             try:
-                with torch.set_grad_enabled(grad), (
+                with torch.set_grad_enabled(grad), profiling.attach(trace), (
                         torch.cuda.device(devices[i]) if streams[i] is not None
                         else nullcontext()), (
                         torch.cuda.stream(streams[i])

@@ -28,6 +28,7 @@ reconstructible; ordering is deterministic either way.
 import numpy as np
 
 from .. import native
+from ..utils import profiling
 from . import costs as C
 
 
@@ -53,65 +54,71 @@ def assign_identities(frame_dets, astar_dists, params, vis_feats=None):
 
     Returns TrackGraphResult or None when the flow range is infeasible.
     """
-    max_px = 500
-    n_frames = len(frame_dets)
-    obs, offsets, counts = C.observation_setup(frame_dets, params)
-    n_dets = int(offsets[-1])
+    # the costs and the graph (``mcf.build``), then the native solve
+    # (``mcf.solve``)
+    with profiling.span('mcf.build'):
+        max_px = 500
+        n_frames = len(frame_dets)
+        obs, offsets, counts = C.observation_setup(frame_dets, params)
+        n_dets = int(offsets[-1])
 
-    src = 2 * n_dets
-    snk = 2 * n_dets + 1
-    # structural edges, interleaved so edge 3i is the observation edge
-    # u_i -> v_i, 3i+1 the entry, 3i+2 the exit (the decomposition below
-    # indexes flow[] by this layout)
-    ids = np.arange(n_dets)
-    ef_s = np.empty(3 * n_dets, np.int64)
-    et_s = np.empty(3 * n_dets, np.int64)
-    ec_s = np.empty(3 * n_dets, np.float64)
-    ef_s[0::3], et_s[0::3], ec_s[0::3] = 2 * ids, 2 * ids + 1, obs
-    ef_s[1::3], et_s[1::3], ec_s[1::3] = src, 2 * ids, \
-        params['MCF_ENTRY_EXIT_COST']
-    ef_s[2::3], et_s[2::3], ec_s[2::3] = 2 * ids + 1, snk, \
-        params['MCF_ENTRY_EXIT_COST']
+        src = 2 * n_dets
+        snk = 2 * n_dets + 1
+        # structural edges, interleaved so edge 3i is the observation edge
+        # u_i -> v_i, 3i+1 the entry, 3i+2 the exit (the decomposition below
+        # indexes flow[] by this layout)
+        ids = np.arange(n_dets)
+        ef_s = np.empty(3 * n_dets, np.int64)
+        et_s = np.empty(3 * n_dets, np.int64)
+        ec_s = np.empty(3 * n_dets, np.float64)
+        ef_s[0::3], et_s[0::3], ec_s[0::3] = 2 * ids, 2 * ids + 1, obs
+        ef_s[1::3], et_s[1::3], ec_s[1::3] = src, 2 * ids, \
+            params['MCF_ENTRY_EXIT_COST']
+        ef_s[2::3], et_s[2::3], ec_s[2::3] = 2 * ids + 1, snk, \
+            params['MCF_ENTRY_EXIT_COST']
 
-    n_struct = 3 * n_dets
-    ef_blocks, et_blocks, ec_blocks = [ef_s], [et_s], [ec_s]
-    gp_blocks, gc_blocks = [], []   # transition edge endpoints (global ids)
-    for t in range(n_frames):
-        for gap in range(1, params['MCF_MAX_NUM_MISSES'] + 2):
-            tb = t - gap
-            if tb < 0 or (t, gap) not in astar_dists:
-                continue
-            d = np.asarray(astar_dists[(t, gap)], np.float64)
-            if d.size == 0:
-                continue
-            vis_sim = None
-            w = params['MCF_VIS_SIM_WEIGHT']
-            if w:
-                if vis_feats is None:
-                    # computing -log((1-w)*closeness + 0) here would
-                    # silently inflate every transition cost by the
-                    # missing appearance term — refuse instead
-                    raise ValueError(
-                        'MCF_VIS_SIM_WEIGHT > 0 requires vis_feats '
-                        '(per-frame appearance histograms); got None')
-                vis_sim = C.bhattacharyya_similarity(vis_feats[tb],
-                                                     vis_feats[t])
-            cost = C.transition_costs(d, params['MCF_MISS_RATE'], gap,
-                                      max_px, vis_sim, w)
-            keep = np.isfinite(cost) & (cost <= params['MCF_EDGE_COST_THR'])
-            pi, ci = np.nonzero(keep)
-            gp = offsets[tb] + pi
-            gc = offsets[t] + ci
-            ef_blocks.append(2 * gp + 1)
-            et_blocks.append(2 * gc)
-            ec_blocks.append(cost[pi, ci])
-            gp_blocks.append(gp)
-            gc_blocks.append(gc)
+        n_struct = 3 * n_dets
+        ef_blocks, et_blocks, ec_blocks = [ef_s], [et_s], [ec_s]
+        gp_blocks, gc_blocks = [], []   # transition edges' global ids
+        for t in range(n_frames):
+            for gap in range(1, params['MCF_MAX_NUM_MISSES'] + 2):
+                tb = t - gap
+                if tb < 0 or (t, gap) not in astar_dists:
+                    continue
+                d = np.asarray(astar_dists[(t, gap)], np.float64)
+                if d.size == 0:
+                    continue
+                vis_sim = None
+                w = params['MCF_VIS_SIM_WEIGHT']
+                if w:
+                    if vis_feats is None:
+                        # computing -log((1-w)*closeness + 0) here would
+                        # silently inflate every transition cost by the
+                        # missing appearance term — refuse instead
+                        raise ValueError(
+                            'MCF_VIS_SIM_WEIGHT > 0 requires vis_feats '
+                            '(per-frame appearance histograms); got None')
+                    vis_sim = C.bhattacharyya_similarity(vis_feats[tb],
+                                                         vis_feats[t])
+                cost = C.transition_costs(d, params['MCF_MISS_RATE'], gap,
+                                          max_px, vis_sim, w)
+                keep = (np.isfinite(cost)
+                        & (cost <= params['MCF_EDGE_COST_THR']))
+                pi, ci = np.nonzero(keep)
+                gp = offsets[tb] + pi
+                gc = offsets[t] + ci
+                ef_blocks.append(2 * gp + 1)
+                et_blocks.append(2 * gc)
+                ec_blocks.append(cost[pi, ci])
+                gp_blocks.append(gp)
+                gc_blocks.append(gc)
+        edges = [np.concatenate(b) for b in (ef_blocks, et_blocks,
+                                             ec_blocks)]
 
-    flow_val, flow, total_cost = native.solve_tracking_mcf(
-        2 * n_dets + 2, np.concatenate(ef_blocks),
-        np.concatenate(et_blocks), np.concatenate(ec_blocks),
-        params['MCF_MIN_FLOW'], params['MCF_MAX_FLOW'])
+    with profiling.span('mcf.solve'):
+        flow_val, flow, total_cost = native.solve_tracking_mcf(
+            2 * n_dets + 2, *edges, params['MCF_MIN_FLOW'],
+            params['MCF_MAX_FLOW'])
     if flow_val is None:
         return None
 

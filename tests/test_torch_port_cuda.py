@@ -1,8 +1,9 @@
 """The port on the GPU: kernel K1 against its plain version, the
 training path's device code, the auction tracker, the mixed-precision
 detector and the backbone detectors against the CPU, and the mesh step on
-logical shards of the card against one device, and the bundle's trained
-weights on the card against the CPU.
+logical shards of the card against one device, the bundle's trained
+weights on the card against the CPU, and the trace records' ``syncs``
+counters against CUDA's own sync warnings.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a) and are marked ``cuda``;
 on a machine without one they skip. Run them on the card with
@@ -557,3 +558,97 @@ def test_trained_bundle_on_the_card_equals_cpu(dev, tmp_path):
     same, line = trained_gpu_vs_cpu(str(tmp_path), torch, np, dev=str(dev))
     assert same, line
     assert GC.chamfer_kernel.launches >= 1
+
+
+def _host_waits(fn):
+    """Run ``fn()`` under ``set_sync_debug_mode('warn')``: (its result,
+    CUDA's sync warnings by site, the device synchronizes it made, which
+    CUDA's debug mode does not flag)."""
+    import collections
+    import os
+    import warnings
+    real, synchronizes = torch.cuda.synchronize, []
+
+    def synchronize(*a, **k):
+        synchronizes.append(1)
+        return real(*a, **k)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.synchronize = synchronize
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+            torch.cuda.synchronize = real
+    sites = collections.Counter(
+        f'{os.path.basename(w.filename)}:{w.lineno}' for w in caught
+        if 'called a synchronizing CUDA operation' in str(w.message))
+    return out, sites, len(synchronizes)
+
+
+def test_sync_counter_equals_the_sync_warnings(dev, tmp_path):
+    """Over one small inference under ``set_sync_debug_mode('warn')`` the
+    movie's trace record counts (``syncs``) every synchronizing operation
+    CUDA warns of (the copies to the host, the blocking copies to the card
+    and the boolean indexing that remain) and each device synchronize,
+    which the debug mode does not flag. Under ``torch.profiler`` each
+    ``axtrack.*`` event lies within its span's mapped stamps to 0.5 ms."""
+    from torch.profiler import ProfilerActivity, profile
+    from axtrack_tpu_torch import interface as PI
+    P, model, tl = _tiny_movie_on(dev, tmp_path)
+    PI.inference(tl, model, str(tmp_path), P, None, None, None)   # warm
+    P, model, tl = _tiny_movie_on(dev, tmp_path)
+    ax, sites, synchronizes = _host_waits(
+        lambda: PI.inference(tl, model, str(tmp_path), P, None, None, None))
+    counted = ax.trace.counters.get('syncs', 0)
+    assert counted == sum(sites.values()) + synchronizes > 0, (
+        counted, synchronizes, sorted(sites.items()))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ax = PI.inference(tl, model, str(tmp_path), P, None, None, None)
+    events = sorted((ev.start_ns(), ev.end_ns(), ev.name()[8:])
+                    for ev in prof.profiler.kineto_results.events()
+                    if ev.name().startswith('axtrack.'))
+    rec, worst = ax.trace, 0.0
+    for i, (name, _, start, dur) in enumerate(rec.spans):
+        k = [j for j, s in enumerate(rec.spans) if s[0] == name].index(i)
+        s, e, _ = [ev for ev in events if ev[2] == name][k]
+        worst = max(worst, start - s, e - (start + dur))
+    assert worst <= 0.5e6, worst
+
+
+def test_epoch_sync_counter_equals_the_sync_warnings(dev, tmp_path):
+    """Over a labelled training epoch on the card with its F1 pass (epoch
+    10) and the test epoch after it, each epoch's trace record counts
+    (``syncs``) every synchronizing operation CUDA warns of and each device
+    synchronize."""
+    from axtrack_tpu_torch.data.synthetic import write_fixture
+    from axtrack_tpu_torch.params import get_default_parameters
+    from axtrack_tpu_torch.train import engine as PE
+    from axtrack_tpu_torch.utils import profiling
+    fx = write_fixture(str(tmp_path), name='train_movie', T=10, H=256,
+                       W=512, n_axons=6, seed=5, n_channels=4)
+    P = get_default_parameters()
+    P.update(TIMELAPSE_FILE=fx['tif'], LABELS_FILE=fx['labels'],
+             MASK_FILE=fx['mask'], TRAIN_TIMEPOINTS=list(range(2, 8)),
+             TEST_TIMEPOINTS=[2, 3], TILESIZE=256, BATCH_SIZE=5, CACHE=None,
+             FROM_CACHE=None, PLOT_PREPROC=False,
+             USE_TRANSFORMS=['vflip', 'translateX'], SHUFFLE=True,
+             ARCHITECTURE=[[(3, 8, 2, 1), 'M'],
+                           [('FC', 32), ('activation', 'sigmoid')]],
+             DEVICE=str(dev))
+    train, test = PE.setup_data(P)
+    state = PE.setup_model(P)
+    PE.one_epoch(train, state, P, 9, train=True)                 # warm
+    PE.one_epoch(test, state, P, 9, train=False)
+    for data, train_epoch in ((train, True), (test, False)):
+        _, sites, synchronizes = _host_waits(
+            lambda: PE.one_epoch(data, state, P, 10, train=train_epoch))
+        rec = profiling.records()[-1]
+        assert rec.meta == {'epoch': 10, 'train': train_epoch}
+        counted = rec.counters.get('syncs', 0)
+        assert counted == sum(sites.values()) + synchronizes > 0, (
+            counted, synchronizes, sorted(sites.items()))

@@ -343,17 +343,20 @@ def test_profiling_stage_timer_and_trace(tmp_path):
     t = StageTimer()
     x = torch.ones(64, 64)
     for _ in range(2):
-        with t.stage('mm', sync_result={'y': [x @ x]}):
-            pass
+        with t.span('mm') as sp:
+            x @ x
+    assert sp.seconds == t.spans[-1][3] / 1e9
     s = t.summary()
     assert s['mm']['calls'] == 2 and s['mm']['total_s'] >= 0
-    t.dump(str(tmp_path / 'prof.json'))
-    assert 'mm' in t.report()
+    assert s['mm']['total_s'] == pytest.approx(
+        sum(d for _, _, _, d in t.spans) / 1e9)
     with device_trace(str(tmp_path / 'trace')) as prof:
-        (x @ x).sum()
+        with t.span('traced'):
+            (x @ x).sum()
     assert prof.key_averages()
     with open(tmp_path / 'trace' / 'trace.json') as f:
-        assert 'aten::mm' in f.read()
+        text = f.read()
+    assert 'aten::mm' in text and 'axtrack.traced' in text
 
 
 def test_every_port_module_imports_without_matplotlib():
