@@ -9,6 +9,12 @@ an ARCHITECTURE string, a backbone stack as ``ConvNet``
 Linear/activation per the FC spec -> the Sy*Sx*3 head, reshaped to the
 grid [N, Sx, Sy, 3].
 
+In eval mode, with no autograd graph to record, a block whose conv computes
+in f32 on a card runs its convolution without the bias and one hand-written
+kernel for the bias, BatchNorm, leaky ReLU and the 2x2 max-pool that
+follows it in the spec (``ConvSpecNet``, ``ops/epilogue_cuda.py``); the
+modules, their names and the state dict stay as they are.
+
 In train mode the BatchNorm layers update their running statistics as
 flax does (momentum 0.9, the biased batch variance; ``FlaxBatchNorm2d``)
 and dropout draws from an explicit generator (``SeededDropout``).
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.epilogue_cuda import epilogue
 from ..utils import exact_f32
 
 
@@ -147,6 +154,47 @@ class CNNBlock(nn.Module):
     def forward(self, x):
         return self.activation(self.batchnorm(self.conv(x)))
 
+    def fuses(self, x):
+        """Whether ``ConvSpecNet`` runs this block on ``x`` as its
+        convolution without the bias and one epilogue kernel: eval mode, an
+        f32 conv, a leaky ReLU, a CUDA input, and grad mode off (the kernel
+        has no backward)."""
+        return (not self.training and self.dtype == torch.float32
+                and x.is_cuda and isinstance(self.activation, nn.LeakyReLU)
+                and not torch.is_grad_enabled())
+
+    def fused(self, x, pool):
+        """The block on ``x`` (``fuses``), followed by a 2x2 max-pool when
+        ``pool``: the conv without its bias, then ``epilogue``."""
+        conv, bn = self.conv, self.batchnorm
+        y = conv._conv_forward(x, conv.weight, None)
+        return epilogue(y, conv.bias, bn.weight, bn.bias, bn.running_mean,
+                        bn.running_var, bn.eps, self.activation.negative_slope,
+                        pool)
+
+
+class ConvSpecNet(nn.Sequential):
+    """The conv-spec stack: ``ConvBlock_{i}`` a ``CNNBlock`` or, for 'M',
+    an ``nn.MaxPool2d(2, 2)``. A block that ``fuses`` its input runs as
+    its conv and one epilogue kernel, which also does the 2x2 max-pool
+    right after the block (that module is then skipped); every other
+    layer runs its modules as ``nn.Sequential`` does."""
+
+    def forward(self, x):
+        layers = list(self)
+        i = 0
+        while i < len(layers):
+            layer = layers[i]
+            if isinstance(layer, CNNBlock) and layer.fuses(x):
+                pool = (i + 1 < len(layers)
+                        and isinstance(layers[i + 1], nn.MaxPool2d))
+                x = layer.fused(x, pool)
+                i += 2 if pool else 1
+            else:
+                x = layer(x)
+                i += 1
+        return x
+
 
 def dtype_linear(x, weight, bias, dtype):
     """flax's ``nn.Dense(dtype=...)`` followed by ``astype(f32)`` with
@@ -240,7 +288,7 @@ class YOLOAxTrack(nn.Module):
                 raise ValueError(f'unknown backbone {conv_spec!r}')
             self.ConvNet = BACKBONES[conv_spec](in_channels, dtype)
         else:
-            self.ConvNet = nn.Sequential()
+            self.ConvNet = ConvSpecNet()
             c = in_channels
             for i, layer in enumerate(conv_spec):
                 if layer == 'M':

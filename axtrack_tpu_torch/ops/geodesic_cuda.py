@@ -37,15 +37,15 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 SRC_BLOCK = 16
 
 
-def _nvcc():
+def _nvcc(source):
     found = shutil.which('nvcc')
     if found:
         return found
     for root in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
         if root and os.path.exists(os.path.join(root, 'bin', 'nvcc')):
             return os.path.join(root, 'bin', 'nvcc')
-    raise RuntimeError('nvcc not found: the chamfer kernel is built from '
-                       f'{SOURCE} on the machine with the GPU')
+    raise RuntimeError(f'nvcc not found: {source} is built on the machine '
+                       'with the GPU')
 
 
 def build(source=SOURCE, build_dir=BUILD_DIR):
@@ -58,7 +58,7 @@ def build(source=SOURCE, build_dir=BUILD_DIR):
         return lib, ''
     os.makedirs(build_dir, exist_ok=True)
     tmp = f'{lib}.{os.getpid()}.tmp'
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, source],
+    proc = subprocess.run([_nvcc(source), *NVCC_FLAGS, '-o', tmp, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed on {source}:\n{proc.stderr}')
@@ -112,28 +112,34 @@ def blocks_per_sm(bands, warps_per_window, n_sms):
     return 4
 
 
-class _Library:
-    """The nvcc build of csrc/chamfer.cu, loaded with ctypes once."""
+class Library:
+    """The nvcc build of a kernel source (``build``), loaded with ctypes
+    once, at the first ``get()``; ``bind(lib)`` declares its functions'
+    argument and result types."""
 
-    def __init__(self):
+    def __init__(self, source, bind):
+        self.source, self.bind = source, bind
         self._lib = None
         self._lock = threading.Lock()
 
     def get(self):
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(build()[0])
-                P, I = ctypes.c_void_p, ctypes.c_int
-                lib.axt_chamfer_bands.argtypes = [P, I, I, P, P, P, I, I, P]
-                lib.axt_chamfer.argtypes = ([P, I, I] + [P] * 7
-                                            + [I] * 5 + [P])
-                lib.axt_chamfer_bands.restype = I
-                lib.axt_chamfer.restype = I
+                lib = ctypes.CDLL(build(self.source)[0])
+                self.bind(lib)
                 self._lib = lib
         return self._lib
 
 
-_library = _Library()
+def _bind_chamfer(lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.axt_chamfer_bands.argtypes = [P, I, I, P, P, P, I, I, P]
+    lib.axt_chamfer.argtypes = [P, I, I] + [P] * 7 + [I] * 5 + [P]
+    lib.axt_chamfer_bands.restype = I
+    lib.axt_chamfer.restype = I
+
+
+_library = Library(SOURCE, _bind_chamfer)
 
 
 def _check_windows(mask_bits, row_words, origins, local, window):
