@@ -3,9 +3,12 @@
 Everything that belongs to a cell is found by name: the workload's
 configuration file (``configs/<config>.json``), its traffic mix
 (``traffic/<mix>.json``, which names the entry that drives the window,
-``entries/<entry>.py``) and, for every metric the cell reports, its
-reader ``metrics/<metric>.py``. Adding a cell, a configuration, a mix or
-a metric adds files and entries; no file here names one.
+``entries/<entry>.py``), the reference trunk of its configuration's
+architecture (``reference/trunks/<name>.py``, found by
+``reference/model.py``) and, for every metric the cell reports, its
+reader ``metrics/<metric>.py``. Adding a cell, a configuration, a mix, a
+metric or an architecture's reference trunk adds files and entries; no
+file here names one.
 
 A run: set-up (the entry's, timed from process start as ``setup_s``), the
 measured window, with ``--trace 1`` a short profiled span after it, the

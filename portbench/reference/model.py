@@ -1,20 +1,35 @@
 """The plain reference detector: the YOLO_AXTrack forward (and, in train
 mode, its loss) in plain torch functions, from the published description
-(LoaloaF/axtrack machinelearning/model.py and loss.py; ResNet-18 as
-torchvision builds it, He et al. arXiv:1512.03385, with the reference's
-biased 3x3 stride-2 stem).
+(LoaloaF/axtrack machinelearning/model.py and loss.py).
 
-It imports nothing of the program. Weights come in one of two published
-layouts, and this module reads each by its own rules:
+It imports nothing of the program. The net is a trunk, whose NCHW
+features are flattened, then the FC head (``fc_spec``): the conv spec's
+own FC spec, or the head the reference puts on every backbone.
+
+Trunks live in ``trunks/<name>.py``, one file an architecture, found by
+the name ``architecture(params)`` gives ('spec' for a conv spec list,
+else params.json's ``ARCHITECTURE`` string); a name with no file is a
+ValueError. Adding an architecture's reference adds its file, and this
+module names none. A trunk file provides:
+
+- ``from_state_dict(sd, params)``: the trunk's tensors from a state dict
+  in the reference's PyTorch names (``ConvNet.*``), used as they are;
+- ``shape_net(params, in_channels, tilesize)``: (the trunk with weights
+  of the right shapes on the meta device, its output channels, its
+  output side), for counting work;
+- ``trunk(net, x, ops, train)``: the NCHW features of NCHW tiles x, every
+  convolution through ``ops.conv`` (which counts its multiply-adds) and
+  every BatchNorm through ``bn`` with the trunk's own eps;
+- optionally ``from_flax(tree, params)``: the trunk from flax variables.
+
+Weights come in one of two published layouts, and this module reads the
+head's part of each by its own rules:
 
 - the flax variables of the repo's trained ``deployed_model/E0300``
-  (``from_flax``): conv kernels HWIO, Dense kernels [in, out], and the
-  conv features flattened in NHWC order, as flax flattens them;
+  (``from_flax``): Dense kernels [in, out], and the conv features
+  flattened in NHWC order, as flax flattens them;
 - a state dict with the reference's PyTorch names (``from_state_dict``):
-  ``ConvNet.ConvBlock_{i}.conv/batchnorm`` or, for ResNet-18,
-  ``ConvNet.block_0`` (stem conv), ``block_1`` (its BatchNorm) and
-  ``block_{4+k}.{j}.conv1/bn1/conv2/bn2/downsample.0/.1``; ``fcs.{j}``
-  Linear layers; features flattened in NCHW order.
+  ``fcs.{j}`` Linear layers; features flattened in NCHW order.
 
 Precision: f32 with TF32 off (``exact``). ``precision='tf32'`` is the
 control, the step below the configuration's precision: on a card the
@@ -23,13 +38,15 @@ rounded to TF32 (10 mantissa bits, nearest even; gradients pass through
 the rounding unchanged).
 """
 import contextlib
+import importlib
+import os
 
 import torch
 import torch.nn.functional as F
 
+# a trunk states its own BatchNorm eps; this is torch's default
 BN_EPS = 1e-5
-# ResNet-18's stages (torchvision: 64-128-256-512, two blocks each)
-RESNET_WIDTHS = (64, 128, 256, 512)
+TRUNKS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'trunks')
 # the FC head the reference puts on a backbone (model.py:55-83)
 BACKBONE_HEAD = [('FC', 1024), ('activation', 'sigmoid'), ('FC', 1024),
                  ('activation', 'sigmoid')]
@@ -80,9 +97,10 @@ class Ops:
         r = lambda a: a + (tf32(a.detach()) - a).detach()  # noqa: E731
         return fn(r(x), r(w), *args)
 
-    def conv(self, x, w, b, stride, padding):
-        y = self._run(F.conv2d, x, w, b, stride, padding)
+    def conv(self, x, w, b, stride, padding, groups=1):
+        y = self._run(F.conv2d, x, w, b, stride, padding, 1, groups)
         if self.count:
+            # w[0] is one output channel's fan-in: in / groups x k x k
             self.macs += y.numel() * w[0].numel()
         return y
 
@@ -104,135 +122,94 @@ def activation(spec):
     raise ValueError(f'activation {spec!r}')
 
 
-def _spec(a):
+def untuple(a):
     """params.json's {'__tuple__': [...]} as a list."""
     if isinstance(a, dict) and '__tuple__' in a:
-        return [_spec(v) for v in a['__tuple__']]
+        return [untuple(v) for v in a['__tuple__']]
     if isinstance(a, list):
-        return [_spec(v) for v in a]
+        return [untuple(v) for v in a]
     return a
 
 
 def architecture(params):
-    """(conv spec or 'resnet', FC spec, activation) of a bundle's
-    params.json dict."""
-    arch = _spec(params['ARCHITECTURE'])
-    act = _spec(params['ACTIVATION_FUNCTION'])
-    if isinstance(arch, str):
-        return arch, BACKBONE_HEAD, act
-    return arch[0], arch[1], act
+    """The trunk's name: 'spec' for a conv spec list, else params.json's
+    ``ARCHITECTURE`` string itself."""
+    arch = untuple(params['ARCHITECTURE'])
+    return arch if isinstance(arch, str) else 'spec'
 
 
-def bn(x, p, train):
+def fc_spec(params):
+    """The FC head's spec: a conv spec architecture's own, else the head
+    the reference puts on every backbone."""
+    arch = untuple(params['ARCHITECTURE'])
+    return BACKBONE_HEAD if isinstance(arch, str) else arch[1]
+
+
+def trunk_module(name):
+    """``trunks/<name>.py``, imported as ``portbench.reference.trunks.
+    <name>``; a ValueError naming the file where there is none."""
+    path = os.path.join(TRUNKS, f'{name}.py')
+    if not (name.isidentifier() and os.path.isfile(path)):
+        raise ValueError(f'ARCHITECTURE {name!r} has no reference trunk: '
+                         f'no file {path}')
+    return importlib.import_module(f'{__package__}.trunks.{name}')
+
+
+def bn(x, p, train, eps=BN_EPS):
     """BatchNorm: batch statistics (biased variance) in train mode, the
-    running ones otherwise."""
+    running ones otherwise; ``eps`` is the trunk's."""
     if train:
         return F.batch_norm(x, None, None, p['scale'], p['bias'], True, 0.0,
-                            BN_EPS)
+                            eps)
     mean, var = p['mean'], p['var']
-    inv = p['scale'] / torch.sqrt(var + BN_EPS)
+    inv = p['scale'] / torch.sqrt(var + eps)
     return (x - mean[:, None, None]) * inv[:, None, None] \
         + p['bias'][:, None, None]
 
 
-def from_flax(tree, params):
-    """The net from flax variables ({'params', 'batch_stats'}) of a conv
-    spec architecture."""
-    conv_spec, fc_spec, act = architecture(params)
-    f = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
-    prm, stats = tree['params'], tree['batch_stats']
-    convs, k = [], 0
-    for layer in conv_spec:
-        if layer == 'M':
-            convs.append('M')
-            continue
-        blk = prm[f'CNNBlock_{k}']
-        convs.append({
-            'w': f(blk['Conv_0']['kernel']).permute(3, 2, 0, 1).contiguous(),
-            'b': f(blk['Conv_0']['bias']), 'stride': layer[2],
-            'bn': {'scale': f(blk['BatchNorm_0']['scale']),
-                   'bias': f(blk['BatchNorm_0']['bias']),
-                   'mean': f(stats[f'CNNBlock_{k}']['BatchNorm_0']['mean']),
-                   'var': f(stats[f'CNNBlock_{k}']['BatchNorm_0']['var'])}})
-        k += 1
-    n_fc = sum(1 for e, _ in fc_spec if e == 'FC') + 1
-    fcs = [{'w': f(prm[f'Dense_{m}']['kernel']).T.contiguous(),
-            'b': f(prm[f'Dense_{m}']['bias'])} for m in range(n_fc)]
-    return {'kind': 'spec', 'convs': convs, 'fcs': fcs, 'fc_spec': fc_spec,
-            'act': act, 'flatten': 'nhwc', 'S': (params['SX'], params['SY'])}
-
-
-def _bn_sd(sd, pre):
+def bn_sd(sd, pre):
+    """A BatchNorm's tensors from a state dict under the prefix ``pre``."""
     return {'scale': sd[f'{pre}.weight'], 'bias': sd[f'{pre}.bias'],
             'mean': sd[f'{pre}.running_mean'],
             'var': sd[f'{pre}.running_var']}
 
 
+def _net(params, name, body, fcs, flatten):
+    return {'arch': name, 'trunk': body, 'fcs': fcs,
+            'fc_spec': fc_spec(params), 'flatten': flatten,
+            'S': (params['SX'], params['SY'])}
+
+
+def from_flax(tree, params):
+    """The net from flax variables ({'params', 'batch_stats'}), for a trunk
+    whose file reads them (``from_flax``); Dense kernels [in, out]."""
+    name = architecture(params)
+    body = trunk_module(name).from_flax(tree, params)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
+    prm = tree['params']
+    n_fc = sum(1 for e, _ in fc_spec(params) if e == 'FC') + 1
+    fcs = [{'w': f(prm[f'Dense_{m}']['kernel']).T.contiguous(),
+            'b': f(prm[f'Dense_{m}']['bias'])} for m in range(n_fc)]
+    return _net(params, name, body, fcs, 'nhwc')
+
+
 def from_state_dict(sd, params):
     """The net from a state dict in the reference's PyTorch names (see the
     module docstring); the tensors are used as they are (no copy)."""
-    conv_spec, fc_spec, act = architecture(params)
-    net = {'fc_spec': fc_spec, 'act': act, 'flatten': 'nchw',
-           'S': (params['SX'], params['SY'])}
-    if conv_spec == 'resnet':
-        blocks = []
-        for k, width in enumerate(RESNET_WIDTHS):
-            for j in range(2):
-                pre = f'ConvNet.block_{4 + k}.{j}'
-                stride = 2 if (k > 0 and j == 0) else 1
-                blk = {'w1': sd[f'{pre}.conv1.weight'], 'stride': stride,
-                       'bn1': _bn_sd(sd, f'{pre}.bn1'),
-                       'w2': sd[f'{pre}.conv2.weight'],
-                       'bn2': _bn_sd(sd, f'{pre}.bn2'), 'down': None}
-                if f'{pre}.downsample.0.weight' in sd:
-                    blk['down'] = (sd[f'{pre}.downsample.0.weight'],
-                                   _bn_sd(sd, f'{pre}.downsample.1'))
-                blocks.append(blk)
-        net.update(kind='resnet', stem=(sd['ConvNet.block_0.weight'],
-                                        sd['ConvNet.block_0.bias']),
-                   stem_bn=_bn_sd(sd, 'ConvNet.block_1'), blocks=blocks)
-    else:
-        convs = []
-        for i, layer in enumerate(conv_spec):
-            if layer == 'M':
-                convs.append('M')
-                continue
-            pre = f'ConvNet.ConvBlock_{i}'
-            convs.append({'w': sd[f'{pre}.conv.weight'],
-                          'b': sd[f'{pre}.conv.bias'], 'stride': layer[2],
-                          'bn': _bn_sd(sd, f'{pre}.batchnorm')})
-        net.update(kind='spec', convs=convs)
+    name = architecture(params)
+    body = trunk_module(name).from_state_dict(sd, params)
     # fcs: Flatten is 0, one module per FC spec element, the head last
-    idx = [1 + j for j, (e, _) in enumerate(fc_spec) if e == 'FC']
-    idx.append(1 + len(fc_spec))
-    net['fcs'] = [{'w': sd[f'fcs.{j}.weight'], 'b': sd[f'fcs.{j}.bias']}
-                  for j in idx]
-    return net
+    spec = fc_spec(params)
+    idx = [1 + j for j, (e, _) in enumerate(spec) if e == 'FC']
+    idx.append(1 + len(spec))
+    fcs = [{'w': sd[f'fcs.{j}.weight'], 'b': sd[f'fcs.{j}.bias']}
+           for j in idx]
+    return _net(params, name, body, fcs, 'nchw')
 
 
 def trunk(net, x, ops, train=False):
     """Conv features of NCHW tiles x."""
-    if net['kind'] == 'resnet':
-        w, b = net['stem']
-        x = F.relu(bn(ops.conv(x, w, b, 2, 2), net['stem_bn'], train))
-        x = F.max_pool2d(x, 3, 2, 1)
-        for blk in net['blocks']:
-            h = F.relu(bn(ops.conv(x, blk['w1'], None, blk['stride'], 1),
-                          blk['bn1'], train))
-            h = bn(ops.conv(h, blk['w2'], None, 1, 1), blk['bn2'], train)
-            if blk['down'] is not None:
-                w, p = blk['down']
-                x = bn(ops.conv(x, w, None, blk['stride'], 0), p, train)
-            x = F.relu(h + x)
-        return x
-    act = activation(net['act'])
-    for layer in net['convs']:
-        if layer == 'M':
-            x = F.max_pool2d(x, 2, 2)
-        else:
-            x = act(bn(ops.conv(x, layer['w'], layer['b'], layer['stride'],
-                                1), layer['bn'], train))
-    return x
+    return trunk_module(net['arch']).trunk(net['trunk'], x, ops, train)
 
 
 def forward(net, x, ops=None, train=False):
@@ -273,49 +250,17 @@ def yolo_loss(pred, target, P):
 def shape_net(params, in_channels, tilesize):
     """The net of a params.json's architecture with weights of the right
     shapes on the meta device (no values): for counting work."""
-    conv_spec, fc_spec, act = architecture(params)
+    name = architecture(params)
+    body, c, h = trunk_module(name).shape_net(params, in_channels, tilesize)
     e = lambda *s: torch.empty(s, device='meta')  # noqa: E731
-    bnp = lambda c: {k: e(c) for k in ('scale', 'bias', 'mean', 'var')}  # noqa
-    net = {'fc_spec': fc_spec, 'act': act, 'flatten': 'nchw',
-           'S': (params['SX'], params['SY'])}
-    c, h = in_channels, tilesize
-    if conv_spec == 'resnet':
-        net.update(kind='resnet', stem=(e(64, c, 3, 3), e(64)),
-                   stem_bn=bnp(64), blocks=[])
-        c, h = 64, (h + 4 - 3) // 2 + 1
-        h = (h + 2 - 3) // 2 + 1
-        for k, width in enumerate(RESNET_WIDTHS):
-            for j in range(2):
-                stride = 2 if (k > 0 and j == 0) else 1
-                down = ((e(width, c, 1, 1), bnp(width))
-                        if stride != 1 or c != width else None)
-                net['blocks'].append({'w1': e(width, c, 3, 3),
-                                      'stride': stride, 'bn1': bnp(width),
-                                      'w2': e(width, width, 3, 3),
-                                      'bn2': bnp(width), 'down': down})
-                h = (h + 2 - 3) // stride + 1
-                c = width
-    else:
-        convs = []
-        for layer in conv_spec:
-            if layer == 'M':
-                convs.append('M')
-                h //= 2
-                continue
-            k, out_c, stride, _ = layer
-            convs.append({'w': e(out_c, c, k, k), 'b': e(out_c),
-                          'stride': stride, 'bn': bnp(out_c)})
-            c, h = out_c, (h + 2 - k) // stride + 1
-        net.update(kind='spec', convs=convs)
     d, fcs = c * h * h, []
-    for element, param in fc_spec:
+    for element, param in fc_spec(params):
         if element == 'FC':
             fcs.append({'w': e(param, d), 'b': e(param)})
             d = param
     fcs.append({'w': e(params['SX'] * params['SY'] * 3, d),
                 'b': e(params['SX'] * params['SY'] * 3)})
-    net['fcs'] = fcs
-    return net
+    return _net(params, name, body, fcs, 'nchw')
 
 
 def forward_flops(params, in_channels, tilesize):

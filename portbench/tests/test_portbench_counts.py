@@ -4,6 +4,8 @@ import json
 
 import numpy as np
 import pytest
+import torch
+import torch.nn.functional as F
 
 from _small import ROOT
 from portbench.lib import k1work, peaks, trace
@@ -23,6 +25,35 @@ def test_batch16_train_step_flops(arch, gflop):
         P['ARCHITECTURE'] = arch
     step = 3 * 16 * M.forward_flops(P, 5, 512)
     assert round(step / 1e9, 1) == gflop
+
+
+@pytest.mark.parametrize('arch, flops', [(None, 2_623_111_168),
+                                         ('resnet', 19_440_539_264)])
+def test_forward_flops_of_a_512_px_tile(arch, flops):
+    P = params()
+    if arch:
+        P['ARCHITECTURE'] = arch
+    assert M.forward_flops(P, 5, 512) == flops
+
+
+def test_a_depthwise_convolution_counts_its_per_group_fan_in():
+    N, C, H, W = 2, 8, 6, 5
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(N, C, H, W, generator=g)
+    w = torch.randn(C, 1, 3, 3, generator=g)
+    ops = M.Ops(count=True)
+    y = ops.conv(x, w, None, 1, 1, groups=C)
+    # each channel with its own 3x3 filter: N.C.H.W.9, not N.C.H.W.C.9
+    assert ops.macs == N * C * H * W * 9
+    one = [F.conv2d(x[:, c:c + 1], w[c:c + 1], None, 1, 1) for c in range(C)]
+    torch.testing.assert_close(y, torch.cat(one, 1))
+
+
+def test_an_architecture_without_a_trunk_file_is_refused():
+    P = params()
+    P['ARCHITECTURE'] = 'nosuchnet'
+    with pytest.raises(ValueError, match=r'trunks/nosuchnet\.py'):
+        M.forward_flops(P, 5, 512)
 
 
 def test_k1_work_on_a_hand_worked_mask():

@@ -1,11 +1,14 @@
 """No module a run loads, nor the reference, is JAX's or the JAX
 package's; names are compared whole (the port's name begins with the
 JAX package's)."""
+import os
 import subprocess
 import sys
 
 from _small import ROOT
 from portbench.lib import harness
+
+TRUNKS = os.path.join(ROOT, 'portbench', 'reference', 'trunks')
 
 
 def test_names_are_compared_whole(monkeypatch):
@@ -36,8 +39,13 @@ def test_a_cpu_run_loads_nothing_of_jax():
 
 
 def test_the_reference_imports_nothing_of_the_program():
+    trunks = sorted(f[:-3] for f in os.listdir(TRUNKS)
+                    if f.endswith('.py') and f != '__init__.py')
+    assert {'spec', 'resnet'} <= set(trunks)
     top = _loaded_after(
-        'import sys; sys.path.insert(0, ".")\n'
+        'import sys, importlib; sys.path.insert(0, ".")\n'
         'from portbench.reference import detect, geodesic, mcf, model, '
-        'orbax, train')
+        'orbax, train\n'
+        f'for name in {trunks!r}:\n'
+        '    importlib.import_module("portbench.reference.trunks." + name)')
     assert not top & (set(harness.FORBIDDEN) | {'axtrack_tpu_torch'})

@@ -3,8 +3,11 @@ files found by name, and the time a full check takes."""
 import json
 import os
 import re
+from types import SimpleNamespace
 
 from _small import ROOT
+from portbench.lib import config
+from portbench.reference import model as M
 
 NAME = re.compile(r'^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$')
 UNIT = re.compile(r'^[A-Za-z0-9_/%.-]{1,16}$')
@@ -67,6 +70,11 @@ def test_every_name_finds_its_files():
     for c in b['configs']:
         assert c['file'].startswith('portbench/')
         assert os.path.exists(os.path.join(ROOT, c['file']))
+        with open(os.path.join(ROOT, c['file'])) as f:
+            ctx = SimpleNamespace(root=ROOT, config=json.load(f))
+        arch = M.architecture(config.params_json(ctx))
+        assert os.path.exists(os.path.join(PB, 'reference', 'trunks',
+                                           f'{arch}.py')), (c['name'], arch)
     for w in b['workloads']:
         assert os.path.exists(os.path.join(PB, 'traffic',
                                            f'{w["traffic"]}.json'))
