@@ -76,11 +76,8 @@ def _to(a, device):
 
 def reference_frames(ctx, net, P, mv, ops):
     """The reference's decisions for every centre frame of one movie."""
-    import pickle
-    with open(config.bundle_dir(ctx) + '/train_stnd_scaler.pkl', 'rb') as f:
-        _, (var, _mean) = pickle.load(f)
-    frames = D.preprocess(mv['raw'], mv['mask'], var, ctx.device,
-                          log_correct=P['LOG_CORRECT'])
+    frames = D.preprocess(mv['raw'], mv['mask'], config.scaler_var(ctx),
+                          ctx.device, log_correct=P['LOG_CORRECT'])
     grids, tyx = D.grids(net, frames, P['TILESIZE'], P['TEMPORAL_CONTEXT'],
                          ops)
     del frames

@@ -2,21 +2,48 @@
 
 A configuration file names a bundle directory of the checkout (its
 params.json, scaler and checkpoint), parameter overrides, and where the
-weights come from: 'bundle' serves the bundle's own checkpoint as a user
-does (``setup_inference(dest_dir)``, no weights argument); 'seeded' draws
-them on the device (``seeded_state_dict``) from the configuration's
-``weights_seed`` and hands them over as ``weights=``, so that every run
-serves the same detector (a random net's detections, and
-with them the association's load, depend on its weights), and the run's
-seed draws the movies. A bundle with overrides is written, with its
-scaler, under the run's temporary directory.
+weights come from, by one of three recipes:
+
+- ``"weights": "bundle"`` serves the bundle's own checkpoint as a user
+  does (``setup_inference(dest_dir)``, no weights argument);
+- ``"weights": "seeded"`` draws them on the device (``seeded_state_dict``)
+  from the configuration's ``weights_seed`` and hands them over as
+  ``weights=``, so that every run serves the same detector (a random
+  net's detections, and with them the association's load, depend on its
+  weights), and the run's seed draws the movies; BatchNorm sits at
+  identity (running mean 0, variance 1);
+- ``"weights": "seeded"`` with ``"calibration": "<mix>"`` draws the same
+  weights and then gives every BatchNorm the statistics a trained
+  checkpoint's would have, those of the data it serves (``calibrated``):
+  one movie of the mix ``traffic/<mix>.json`` made from ``weights_seed``,
+  the kept tiles of its first ``calibrate.FRAMES`` centre frames through
+  the reference trunk in train mode (``reference/calibrate.py``). At
+  identity a deep trunk without a residual path on most of its layers
+  shrinks its signal to nothing (MobileNetV3-Small's features reach a std
+  of ~1e-8), every tile gives the same detections, and the check cannot
+  see the trunk. The weights depend on the configuration alone: one net
+  for every run and cell of it. The calibration runs in set-up, but its
+  seconds (``ctx.calibration_s``) are left out of ``setup_s``, as the
+  reference check's are: it is the reference's work, and a user's set-up
+  loads a checkpoint instead.
+
+A bundle with overrides is written, with its scaler, under the run's
+temporary directory.
 """
 import json
 import math
 import os
+import pickle
 import shutil
+import time
 
 import torch
+
+from ..reference import calibrate as C
+from . import movie
+
+TRAFFIC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'traffic')
 
 
 def bundle_dir(ctx):
@@ -46,9 +73,46 @@ def bundle(ctx):
         if ctx.config.get('overrides'):
             raise ValueError('a bundle checkpoint serves the bundle as it '
                              'is: overrides need seeded weights')
+        if 'calibration' in ctx.config:
+            raise ValueError('a bundle checkpoint brings its own BatchNorm '
+                             'statistics: calibration needs seeded weights')
         return src, None
-    return src, seeded_state_dict(port_params(src),
-                                  ctx.config['weights_seed'], ctx.device)
+    sd = seeded_state_dict(port_params(src), ctx.config['weights_seed'],
+                           ctx.device)
+    if 'calibration' in ctx.config:
+        sd = calibrated(ctx, sd)
+    return src, sd
+
+
+def scaler_var(ctx):
+    """The bundle's standardisation scaler: the variance the preprocessed
+    frames are divided by."""
+    with open(os.path.join(bundle_dir(ctx), 'train_stnd_scaler.pkl'),
+              'rb') as f:
+        _, (var, _mean) = pickle.load(f)
+    return var
+
+
+def calibrated(ctx, sd):
+    """``sd`` with every BatchNorm's running statistics those of the
+    configuration's calibration batch (see the module docstring); the
+    seconds it took in ``ctx.calibration_s``."""
+    sync = (torch.cuda.synchronize if ctx.device.type == 'cuda'
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    with open(os.path.join(TRAFFIC,
+                           f'{ctx.config["calibration"]}.json')) as f:
+        mix = json.load(f)
+    P = params_json(ctx)
+    mv = movie.make_movie(mix, ctx.config['weights_seed'], ctx.device,
+                          P['TILESIZE'])
+    tiles = C.batch(mv['raw'], mv['mask'], scaler_var(ctx), P, ctx.device)
+    del mv
+    out = C.calibrate(sd, P, tiles)
+    sync()
+    ctx.calibration_s = time.perf_counter() - t0
+    return out
 
 
 def port_params(directory):

@@ -10,7 +10,8 @@ reader ``metrics/<metric>.py``. Adding a cell, a configuration, a mix, a
 metric or an architecture's reference trunk adds files and entries; no
 file here names one.
 
-A run: set-up (the entry's, timed from process start as ``setup_s``), the
+A run: set-up (the entry's, timed from process start as ``setup_s``, less
+the seconds of a configuration's calibration, ``lib/config.py``), the
 measured window, with ``--trace 1`` a short profiled span after it, the
 peak device memory, the program's state freed, then the reference's
 comparison of the window's outputs (``lib/check.py``), then the metrics.
@@ -112,7 +113,7 @@ def run(root, workload, seed, seconds, trace, device, t0, mix_over=None,
     tmp = tempfile.mkdtemp(prefix='portbench-')
     ctx = SimpleNamespace(root=root, seed=int(seed), trace=bool(trace),
                           device=torch.device(device), config=conf, mix=mix,
-                          tmp=tmp)
+                          tmp=tmp, calibration_s=0.0)
     entry = entry_of(mix)
     cuda = ctx.device.type == 'cuda'
     try:
@@ -121,7 +122,9 @@ def run(root, workload, seed, seconds, trace, device, t0, mix_over=None,
         st = entry.setup(ctx)
         if cuda:
             torch.cuda.synchronize()
-        rec = {'setup_s': time.perf_counter() - t0}
+        rec = {'setup_s': time.perf_counter() - t0 - ctx.calibration_s}
+        if ctx.calibration_s:
+            log(f'calibration: {ctx.calibration_s:.3f} s, not in setup_s')
         rec.update(entry.window(st, seconds, ctx))
         bad = forbidden_modules()
         if bad:

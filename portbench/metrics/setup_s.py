@@ -1,5 +1,5 @@
-"""setup_s: seconds from the process's start to the window's first call
-(host clock)."""
+"""setup_s: seconds from the process's start to the window's first call,
+less a configuration's BatchNorm calibration (host clock)."""
 
 
 def read(rec):

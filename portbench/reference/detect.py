@@ -63,6 +63,14 @@ def kept_tiles(t):
     return idx if len(idx) else torch.arange(t.shape[1], device=t.device)
 
 
+def centre_stacks(t, tc):
+    """The CNN's input [K, C, ts, ts] for each centre frame tc .. T-tc-1 of
+    kept tiles t [T, K, ts, ts]: the frame with its +-tc neighbours as
+    channels."""
+    for c in range(tc, t.shape[0] - tc):
+        yield t[c - tc:c + tc + 1].transpose(0, 1)
+
+
 def grids(net, frames, ts, tc, ops, block=64):
     """CNN grids f32[n_centres, K, Sx, Sy, 3] of every centre frame
     tc .. T-tc-1 (each with its +-tc neighbours as channels), and the kept
@@ -70,10 +78,9 @@ def grids(net, frames, ts, tc, ops, block=64):
     t, ny, nx = tiles(frames, ts)
     keep = kept_tiles(t)
     t = t[:, keep]                                      # [T, K, ts, ts]
-    T, K = t.shape[:2]
+    K = t.shape[1]
     out = []
-    for c in range(tc, T - tc):
-        X = t[c - tc:c + tc + 1].transpose(0, 1)        # [K, C, ts, ts]
+    for X in centre_stacks(t, tc):
         out.append(torch.cat([M.forward(net, X[i:i + block], ops)
                               for i in range(0, K, block)]))
     tyx = torch.stack([keep // nx, keep % nx], 1)

@@ -19,7 +19,10 @@ module names none. A trunk file provides:
   output side), for counting work;
 - ``trunk(net, x, ops, train)``: the NCHW features of NCHW tiles x, every
   convolution through ``ops.conv`` (which counts its multiply-adds) and
-  every BatchNorm through ``bn`` with the trunk's own eps;
+  every BatchNorm through ``bn`` with the trunk's own eps and the dict of
+  its tensors that ``from_state_dict`` put in the net (``bn_sd``: its
+  'mean' the state dict's own ``running_mean``, by which ``calibrate.py``
+  finds the layer's keys);
 - optionally ``from_flax(tree, params)``: the trunk from flax variables.
 
 Weights come in one of two published layouts, and this module reads the
@@ -157,11 +160,18 @@ def trunk_module(name):
 
 def bn(x, p, train, eps=BN_EPS):
     """BatchNorm: batch statistics (biased variance) in train mode, the
-    running ones otherwise; ``eps`` is the trunk's."""
-    if train:
+    running ones otherwise; ``eps`` is the trunk's. Where ``p`` holds a
+    list under 'batch' (``calibrate.py``), train mode normalises as eval
+    mode does, with the batch's statistics in place of the running ones,
+    and appends them to it as (mean, variance)."""
+    if train and 'batch' not in p:
         return F.batch_norm(x, None, None, p['scale'], p['bias'], True, 0.0,
                             eps)
-    mean, var = p['mean'], p['var']
+    if train:
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        p['batch'].append((mean, var))
+    else:
+        mean, var = p['mean'], p['var']
     inv = p['scale'] / torch.sqrt(var + eps)
     return (x - mean[:, None, None]) * inv[:, None, None] \
         + p['bias'][:, None, None]

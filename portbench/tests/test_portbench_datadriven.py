@@ -69,6 +69,20 @@ ALEXNET_FAULT = ALEXNET_TRUNK.replace(
     '        x = x if w.shape[0] == 384 else F.relu(x)\n')
 
 
+# ResNet-18 on seeded weights whose BatchNorm statistics are calibrated on
+# the cell's own mix (lib/config.py)
+CALIBRATED_CONFIG = {'source': 'the deployed bundle with the ResNet-18 '
+                     'backbone, calibrated', 'bundle': 'deployed_model',
+                     'overrides': {'ARCHITECTURE': 'resnet'},
+                     'weights': 'seeded', 'weights_seed': 6,
+                     'calibration': 'resnet_small',
+                     'reduced': []}
+# the planted fault: the stem's BatchNorm with eps 1e-3, the slip a
+# MobileNet trunk would make
+RESNET_STEM = "net['stem_bn'], train, BN_EPS)"
+RESNET_FAULT = "net['stem_bn'], train, 1e-3)"
+
+
 def digests(top):
     out = {}
     for d, _, files in os.walk(top):
@@ -177,6 +191,29 @@ def test_a_new_architecture_runs_as_an_added_trunk_file(tmp_path):
 
     trunk.write_text(ALEXNET_FAULT)
     out = run_cell(root, 'alexnet.small')
+    assert not out['correct']
+    gap = out['checks']['det_gap']
+    assert gap['value'] > gap['limit']
+
+
+def test_a_calibrated_configuration_runs_as_added_files(tmp_path):
+    root = checkout(tmp_path)
+    before = digests(root / 'portbench')
+
+    bench = add_cell(root, 'resnet_calibrated', CALIBRATED_CONFIG,
+                     'resnet_small', 'resnet.calibrated')
+    (root / 'BENCHMARK.json').write_text(json.dumps(bench))
+
+    out = run_cell(root, 'resnet.calibrated')
+    assert out['correct'], out['checks']
+    after = digests(root / 'portbench')
+    assert {p: after[p] for p in before} == before
+
+    trunk = root / 'portbench' / 'reference' / 'trunks' / 'resnet.py'
+    source = trunk.read_text()
+    assert source.count(RESNET_STEM) == 1
+    trunk.write_text(source.replace(RESNET_STEM, RESNET_FAULT))
+    out = run_cell(root, 'resnet.calibrated')
     assert not out['correct']
     gap = out['checks']['det_gap']
     assert gap['value'] > gap['limit']

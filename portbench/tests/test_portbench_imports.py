@@ -44,8 +44,8 @@ def test_the_reference_imports_nothing_of_the_program():
     assert {'spec', 'resnet'} <= set(trunks)
     top = _loaded_after(
         'import sys, importlib; sys.path.insert(0, ".")\n'
-        'from portbench.reference import detect, geodesic, mcf, model, '
-        'orbax, train\n'
+        'from portbench.reference import calibrate, detect, geodesic, '
+        'mcf, model, orbax, train\n'
         f'for name in {trunks!r}:\n'
         '    importlib.import_module("portbench.reference.trunks." + name)')
     assert not top & (set(harness.FORBIDDEN) | {'axtrack_tpu_torch'})

@@ -83,6 +83,19 @@ def test_every_name_finds_its_files():
                                            f'{m["name"]}.py')), m['name']
 
 
+def test_a_calibration_names_an_inference_mix_of_seeded_weights():
+    for c in bench()['configs']:
+        with open(os.path.join(ROOT, c['file'])) as f:
+            conf = json.load(f)
+        if 'calibration' not in conf:
+            continue
+        assert conf['weights'] == 'seeded', c['name']
+        path = os.path.join(PB, 'traffic', f'{conf["calibration"]}.json')
+        assert os.path.exists(path), (c['name'], path)
+        with open(path) as f:
+            assert json.load(f)['entry'] == 'infer', c['name']
+
+
 def test_every_cell_reports_setup_another_e2e_and_a_layer_metric():
     b = bench()
     e2e = {m['name']: m for m in b['end_to_end']}
