@@ -21,7 +21,6 @@ This module is the reference the CUDA kernel (``geodesic_cuda.py``,
 import torch
 
 from ..config import resolve_device
-from ..utils import profiling
 
 INF = 1e9
 INF_I = 1_000_000_000
@@ -167,8 +166,28 @@ def gather_targets(dmaps, origins, tgts_yx, max_dist, window):
     steps = dmaps[n, ly.clamp(0, window - 1), lx.clamp(0, window - 1)]
     nodecount = steps + 1.0
     ok = inside & (nodecount <= max_dist)
-    return torch.where(ok, nodecount, profiling.to_device(
-        max_dist, dmaps.device, dtype=torch.float32))
+    return torch.where(ok, nodecount, float(max_dist))
+
+
+def gather_pairs(dmaps, origins, rows, tgts_yx, max_dist, window):
+    """``gather_targets`` of many (sources, targets) pairs of one set of
+    maps in one batch: entry [p, i, j] is ``gather_targets(dmaps[rows[p]],
+    origins[rows[p]], tgts_yx[p], max_dist, window)[i, j]``, the same
+    reads and comparisons.
+
+    rows: int64 [P, S] each pair's source rows of ``dmaps`` (padding rows
+      name any valid row); tgts_yx: int64 [P, M, 2] each pair's targets
+      (padding targets any coordinates). Returns f32 [P, S, M].
+    """
+    org = origins[rows]                                        # [P, S, 2]
+    ly = tgts_yx[:, None, :, 0] - org[:, :, None, 0]           # [P, S, M]
+    lx = tgts_yx[:, None, :, 1] - org[:, :, None, 1]
+    inside = (ly >= 0) & (ly < window) & (lx >= 0) & (lx < window)
+    steps = dmaps[rows[:, :, None], ly.clamp(0, window - 1),
+                  lx.clamp(0, window - 1)]
+    nodecount = steps + 1.0
+    ok = inside & (nodecount <= max_dist)
+    return torch.where(ok, nodecount, float(max_dist))
 
 
 def geodesic_pairwise(mask, sources_yx, targets_yx, max_dist=500,

@@ -375,3 +375,107 @@ def test_kernel_row_relax_mirror_equals_plain(E):
                                torch.from_numpy(passable)).numpy()
         got = _kernel_row_relax(cand.astype(np.float32), passable, E)
         np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+# ---- the association's flushes (detections.lookback_distances)
+
+# detections a frame: empty frames as sources and as targets (gap 1 and 2)
+MOVIE_COUNTS = [5, 0, 7, 3, 0, 0, 6, 4, 8, 2]
+
+
+def _movie(mask, seed):
+    """Per-frame detections on ``mask``: mostly passable cells, and in some
+    frames an off-mask cell and a cell at a negative coordinate."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.nonzero(mask)
+    dets = []
+    for t, n in enumerate(MOVIE_COUNTS):
+        pick = rng.choice(len(ys), n, replace=False)
+        y, x = ys[pick], xs[pick]
+        if n and t % 3 == 0:
+            off = np.argwhere(~mask)[rng.integers((~mask).sum())]
+            y[0], x[0] = off
+        if n > 1 and t % 4 == 2:
+            y[1], x[1] = -2, 3
+        dets.append({'y': y.astype(np.int32), 'x': x.astype(np.int32)})
+    return dets
+
+
+def _lookback_oracle(dets, padded, window, cap, max_gap):
+    """Every lookback pair by itself: the source frame's converged maps
+    and ``G.gather_targets`` of the target frame's detections, as the
+    per-pair loop gathered them."""
+    out = {}
+    for s in range(len(dets) - 1):
+        if len(dets[s]['y']) == 0:
+            continue
+        srcs = torch.from_numpy(np.stack([dets[s]['y'], dets[s]['x']], -1))
+        dmaps, origins = G.batched_windows(padded, srcs.long(), window, 1,
+                                           converge=True)
+        for gap in range(1, max_gap + 1):
+            t = s + gap
+            if t < len(dets):
+                tg = np.stack([dets[t]['y'], dets[t]['x']], -1)
+                out[(t, gap)] = G.gather_targets(
+                    dmaps, origins, torch.from_numpy(tg).long().reshape(-1, 2),
+                    cap, window).numpy()
+    return out
+
+
+@pytest.mark.parametrize('case', ['whole', 'split', 'continued', 'never'])
+@pytest.mark.parametrize('family', sorted(MASKS))
+def test_lookback_distances_equal_per_pair_gathers(family, case,
+                                                   monkeypatch):
+    """The packed flush (one upload, one batched gather and one readback a
+    K1 launch) gives the per-pair oracle's distances bit for bit: a window
+    (32) smaller than the mask, so targets fall outside their source's
+    window, a cap (12) below many distances, empty frames as sources and
+    targets. 'split' cuts the flushes at 6 sources; 'continued' fails the
+    first probe's certificate, so each flush certifies after one
+    continuation; 'never' fails it with no continuation allowed, so the
+    flush converges from scratch. One gather a K1 launch (and one after a
+    convergence from scratch), counted as ``gathers``."""
+    from axtrack_tpu_torch import detections as AD
+    from axtrack_tpu_torch.utils import profiling
+    mask = MASKS[family][0]()[0]
+    window, cap, max_gap = 32, 12.0, 2
+    padded = torch.from_numpy(mask)
+    dets = _movie(mask, 11)
+    sweeps = 8 if case == 'continued' else 1
+    if case == 'split':
+        monkeypatch.setattr(AD, 'MAX_SRC', 6)
+    if case in ('continued', 'never'):
+        probe, fails = GC.batched_windows_probed, [1]
+
+        def failing_probe(*args, **kw):
+            dmaps, origins, ok = probe(*args, **kw)
+            if fails:                 # the first probe's certificate fails
+                fails.pop()
+                ok = torch.zeros_like(ok)
+            return dmaps, origins, ok
+        monkeypatch.setattr(GC, 'batched_windows_probed', failing_probe)
+    if case == 'never':
+        monkeypatch.setattr(AD, 'MAX_ASSOC_SWEEPS', 1)
+    rec = profiling.StageTimer()
+    with profiling.attach((rec, None)):
+        got, flushes, _ = AD.lookback_distances(
+            dets, range(len(dets) - 1), max_gap, window, padded,
+            GC.pack_mask(padded), cap, sweeps)
+    want = _lookback_oracle(dets, padded, window, cap, max_gap)
+    assert set(got) == set(want)
+    for key, D in want.items():
+        assert got[key].dtype == np.float32
+        assert np.array_equal(got[key], D), key
+    assert any((D == cap).any() for D in want.values())
+    assert any((D < cap).any() for D in want.values())
+    if case == 'split':
+        assert len(flushes) > 1
+    if case == 'continued':
+        assert [(f['budget'], f['sweeps'], f['certified'])
+                for f in flushes] == [(8, 16, True)]
+    if case == 'never':
+        assert [(f['sweeps'], f['certified']) for f in flushes] == [
+            (1, False)]
+    assert rec.counters['gathers'] == sum(
+        f['sweeps'].bit_length() - f['budget'].bit_length() + 1
+        + (not f['certified']) for f in flushes)
